@@ -1,0 +1,58 @@
+"""Carry state across from the JAX reference package.
+
+Arrays arrive as numpy arrays (``np.asarray`` of a JAX array): tables,
+index streams, a ``HotRowCache``'s ``hot_ids`` / ``hot_data``. Configs
+arrive as the nested dict of ``dataclasses.asdict`` of a reference
+``MemoryControllerConfig``. Nothing here imports JAX or ``repro``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import config as cfg
+from repro_torch.core.controller import HotRowCache
+
+
+def to_tensor(array, device: str | torch.device) -> torch.Tensor:
+    """A copy of ``array`` as a tensor on ``device``.
+
+    numpy's bfloat16 (the ``ml_dtypes`` type a JAX bf16 array converts
+    to) is refused by ``torch.from_numpy``; its bits travel as uint16 and
+    are reinterpreted as ``torch.bfloat16``.
+    """
+    a = np.array(array)          # a writable copy, whatever came in
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def hot_row_cache(hot_ids, hot_data,
+                  device: str | torch.device) -> HotRowCache:
+    """A reference ``HotRowCache``'s arrays as the port's, on ``device``."""
+    return HotRowCache(hot_ids=to_tensor(hot_ids, device).to(torch.int32),
+                       hot_data=to_tensor(hot_data, device))
+
+
+_SUB_CONFIGS = {"scheduler": cfg.SchedulerConfig, "cache": cfg.CacheConfig,
+                "dma": cfg.DMAConfig, "channels": cfg.ChannelConfig,
+                "dram_sched": cfg.DRAMSchedConfig}
+
+
+def config_from_dict(d: dict) -> cfg.MemoryControllerConfig:
+    """``dataclasses.asdict`` of a reference ``MemoryControllerConfig`` (or
+    the same dict after a JSON round trip) as the port's config; the
+    constructors validate it as the reference does."""
+    kw = dict(d)
+    for name, klass in _SUB_CONFIGS.items():
+        if name in kw:
+            kw[name] = klass(**kw[name])
+    if kw.get("faults") is not None:
+        f = dict(kw["faults"])
+        f["failed_channels"] = tuple(f.get("failed_channels", ()))
+        f["outage_windows"] = tuple(tuple(w)
+                                    for w in f.get("outage_windows", ()))
+        kw["faults"] = cfg.FaultConfig(**f)
+    return cfg.MemoryControllerConfig(**kw)

@@ -1,0 +1,31 @@
+"""Run-coalescing for sorted write batches, plain torch (the ``add`` half of
+the sorted-scatter kernel's plain version; the CUDA kernel fuses the same
+fold). Counterpart of ``repro.kernels.sorted_scatter.coalesce``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def coalesce_add_runs(table: torch.Tensor, sidx: torch.Tensor,
+                      svals: torch.Tensor) -> torch.Tensor:
+    """Fold each equal-index run of a *sorted* write batch for ``add``.
+
+    Returns per-slot values ``table[row] + Σ(run values)``, so flushing
+    any one slot of a run — in particular the last one — accumulates
+    exactly like the in-order stream. Sums are taken *per run* (a segment
+    sum keyed on the run-start index) in at least float32 — float64
+    tables accumulate in float64 — with no global prefix accumulation, so
+    a short run's sum stays accurate in million-row batches. On the CPU
+    ``index_add_`` adds in slot order; on CUDA its order varies, within
+    float reassociation.
+    """
+    acc = torch.promote_types(torch.float32, table.dtype)
+    starts = torch.searchsorted(sidx, sidx, side="left")
+    totals = svals.new_zeros(svals.shape, dtype=acc).index_add_(
+        0, starts, svals.to(acc))
+    run_sum = totals.index_select(0, starts)
+    # The base-row add also happens in the accumulator dtype — rounding
+    # to the table dtype exactly once, same as the unscheduled reference.
+    return (table.index_select(0, sidx).to(acc) + run_sum).to(table.dtype)

@@ -1,0 +1,178 @@
+"""Package rules of the port: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the reference package, import without ``nvcc`` or
+``triton``, run on the GPU unless asked for the CPU, and never fall back
+from a kernel to its plain version for a tensor off the CPU."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import MemoryController, PAPER_EVAL_CONFIG
+from repro_torch.kernels import _build
+from repro_torch.kernels.bitonic_sort import kernel as bs_kernel
+from repro_torch.kernels.sorted_gather import kernel as sg_kernel
+from repro_torch.kernels.sorted_scatter import kernel as ss_kernel
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(PKG.parent).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PKG.rglob("*.py"))
+
+
+def _run(code, env=None, cwd=ROOT):
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def _env(**extra):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **extra)
+    env.pop("CUDA_HOME", None)
+    return env
+
+
+def test_no_module_imports_jax_or_the_reference_package():
+    """Import every module of the port (and chip_smoke.py) in a fresh
+    interpreter: neither ``jax`` nor any ``repro`` module is loaded."""
+    mods = _modules()
+    assert "repro_torch.kernels._build" in mods and len(mods) > 15
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m == 'repro'\n"
+        "             or m.startswith(('jax.', 'repro.')))\n"
+        "print(bad)\n")
+    res = _run(code, env=_env())
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_no_source_names_jax_or_the_reference_package():
+    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_imports_without_nvcc_or_triton(tmp_path):
+    """With no ``nvcc`` on PATH, no CUDA_HOME and ``triton`` unimportable,
+    the package imports, builds nothing, and asking for a build raises."""
+    code = (
+        "import sys\n"
+        "class NoTriton:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] == 'triton':\n"
+        "            raise ImportError('no triton')\n"
+        "sys.meta_path.insert(0, NoTriton())\n"
+        "import repro_torch, repro_torch.convert\n"
+        "from repro_torch.kernels import _build\n"
+        "from repro_torch.kernels.sorted_gather import kernel\n"
+        "assert kernel.LIB._lib is None and kernel.LIB.launches == 0\n"
+        "try:\n"
+        "    _build.nvcc_path()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', 'nvcc' in str(e))\n")
+    res = _run(code, env=_env(PATH=str(tmp_path)))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "raised True"
+
+
+def test_controller_runs_on_the_gpu_unless_asked():
+    mc = MemoryController(PAPER_EVAL_CONFIG)
+    assert mc.device == "cuda" and mc.use_kernels
+    table, idx = torch.zeros((8, 4)), torch.tensor([1, 2])
+    cache_ids = torch.tensor([1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="cuda"):
+        mc.gather(table, idx)
+    with pytest.raises(ValueError, match="cuda"):
+        mc.scatter(table, idx, torch.zeros((2, 4)))
+    with pytest.raises(ValueError, match="cuda"):
+        mc.scatter(table, idx, torch.zeros((2, 4)), mode="add")
+    from repro_torch.core import HotRowCache
+    with pytest.raises(ValueError, match="cuda"):
+        mc.cached_gather(table, idx, HotRowCache(cache_ids, table[:1]))
+    cpu = MemoryController(PAPER_EVAL_CONFIG, device="cpu")
+    assert torch.equal(cpu.gather(table, idx), table[idx])
+
+
+@pytest.mark.parametrize("call", ["sort", "gather", "scatter_set",
+                                  "scatter_add"])
+def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
+    """For a tensor on another device than the CPU the wrappers launch the
+    kernel or raise; on the ``meta`` device (no data, no kernel) they raise
+    rather than run the plain version."""
+    dev = torch.device("meta")
+    i32 = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    table = torch.zeros((8, 4), device=dev)
+    sidx = torch.zeros((3,), dtype=torch.int32, device=dev)
+    vals = torch.zeros((3, 4), device=dev)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        if call == "sort":
+            bs_kernel.bitonic_sort_batched(i32, i32)
+        elif call == "gather":
+            sg_kernel.gather_rows(table, sidx)
+        else:
+            ss_kernel.scatter_rows(table, sidx, vals,
+                                   mode=call.removeprefix("scatter_"))
+    assert bs_kernel.LIB.launches == sg_kernel.LIB.launches \
+        == ss_kernel.LIB.launches == 0
+
+
+def test_build_command_targets_hopper():
+    cmd = _build.nvcc_command("sorted_gather", pathlib.Path("out.so"))
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    for flag in ("-O3", "-shared", "-fPIC"):
+        assert flag in cmd
+    assert _build.BUILD_DIR == ROOT / "build" / "kernels"
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
+
+
+def test_convert_carries_bf16_bits():
+    """numpy's bfloat16 is refused by ``torch.from_numpy``; ``to_tensor``
+    carries its bits as uint16."""
+    import ml_dtypes
+    a = np.asarray([1.0, -2.5, 3.140625, 65280.0], ml_dtypes.bfloat16)
+    with pytest.raises(TypeError):
+        torch.from_numpy(a)
+    from repro_torch import convert
+    t = convert.to_tensor(a, "cpu")
+    assert t.dtype == torch.bfloat16
+    assert t.float().tolist() == a.astype(np.float32).tolist()
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_gpu_or_the_repo(alone, tmp_path):
+    """``chip_smoke.py`` exits non-zero and prints no result where
+    ``torch.cuda.is_available()`` is false, from the checkout and from a
+    directory that holds the script alone."""
+    script = ROOT / "chip_smoke.py"
+    cwd = ROOT
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout

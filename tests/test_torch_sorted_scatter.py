@@ -1,0 +1,212 @@
+"""Port parity for B3, the sorted scatter: ``repro_torch`` (the kernel's plain
+version, as it runs for CPU tensors) against the JAX op with its Pallas
+kernel in interpret mode and the in-order write-stream oracle.
+
+Tolerances: ``set`` moves values and is bit-equal. ``add`` sums each run in
+float32 in another association than the reference (rtol = atol = 1e-5 for
+float32 tables); a bf16 table rounds that float32 sum once, and a sum that
+differs in its last bits can round to the neighbouring bf16 value, so bf16
+is held to one bf16 ulp.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+from repro.kernels.sorted_scatter import coalesce as jcoalesce
+from repro.kernels.sorted_scatter import kernel as jkernel
+from repro.kernels.sorted_scatter import ops as jops
+from repro.kernels.sorted_scatter import ref as jref
+from repro_torch import convert
+from repro_torch.kernels.sorted_scatter import coalesce as tcoalesce
+from repro_torch.kernels.sorted_scatter import kernel as tkernel
+from repro_torch.kernels.sorted_scatter import ops as tops
+from repro_torch.kernels.sorted_scatter import ref as tref
+
+VOCAB, D = 256, 64          # yi-34b SMOKE_CONFIG widths
+
+
+def _arrays(rng, dtype, shape):
+    """A (VOCAB, D) table, ``shape`` ids with a long duplicate run, and
+    values, as JAX arrays of ``dtype``."""
+    idx = rng.integers(0, VOCAB, shape).astype(np.int32)
+    idx.reshape(-1)[:8] = idx.reshape(-1)[-1]          # a run of 9
+    if dtype == "int32":
+        table = jnp.asarray(rng.integers(-50, 50, (VOCAB, D)), jnp.int32)
+        vals = jnp.asarray(rng.integers(-50, 50, (*shape, D)), jnp.int32)
+    else:
+        table = jnp.asarray(rng.standard_normal((VOCAB, D)),
+                            jnp.float32).astype(dtype)
+        vals = jnp.asarray(rng.standard_normal((*shape, D)),
+                           jnp.float32).astype(dtype)
+    return table, jnp.asarray(idx), vals
+
+
+def _port(*arrays):
+    return [convert.to_tensor(np.asarray(a), "cpu") for a in arrays]
+
+
+def _as_f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _bf16_ulps(got, want):
+    """Max |got - want| in bf16 ulps of the larger magnitude."""
+    a, b = _as_f32(got).astype(np.float64), _as_f32(want).astype(np.float64)
+    mag = np.maximum(np.abs(a), np.abs(b))
+    exp = np.floor(np.log2(np.where(mag > 0, mag, 1.0)))
+    ulp = np.exp2(np.maximum(exp - 7, -133))
+    return float((np.abs(a - b) / ulp).max())
+
+
+def _assert_add_close(got, want, dtype):
+    if dtype == "bfloat16":
+        assert _bf16_ulps(got, want) <= 1.0
+    else:
+        np.testing.assert_allclose(_as_f32(got), _as_f32(want),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("shape", [(40,), (4, 24)])
+@pytest.mark.parametrize("use_bitonic", [False, True])
+def test_set_matches_pallas_op_bit_for_bit(dtype, shape, use_bitonic, rng):
+    table, idx, vals = _arrays(rng, dtype, shape)
+    want = jops.sorted_scatter(table, idx, vals, use_bitonic=use_bitonic)
+    t_table, t_idx, t_vals = _port(table, idx, vals)
+    got = tops.sorted_scatter(t_table, t_idx, t_vals, use_bitonic=use_bitonic)
+    assert got.dtype == t_table.dtype and got.shape == t_table.shape
+    np.testing.assert_array_equal(_as_f32(got), _as_f32(want))
+    np.testing.assert_array_equal(
+        _as_f32(got), _as_f32(jref.scatter_ref(table, idx, vals)))
+    assert torch.equal(got, tref.scatter_ref(t_table, t_idx, t_vals))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(40,), (4, 24)])
+def test_add_matches_pallas_op(dtype, shape, rng):
+    table, idx, vals = _arrays(rng, dtype, shape)
+    want = jops.sorted_scatter(table, idx, vals, mode="add")
+    t_table, t_idx, t_vals = _port(table, idx, vals)
+    got = tops.sorted_scatter(t_table, t_idx, t_vals, mode="add")
+    assert got.dtype == t_table.dtype
+    _assert_add_close(got, want, dtype)
+    _assert_add_close(got, jref.scatter_ref(table, idx, vals, "add"), dtype)
+    _assert_add_close(got, tref.scatter_ref(t_table, t_idx, t_vals, "add"),
+                      dtype)
+
+
+@pytest.mark.parametrize("mode", ["set", "add"])
+def test_scatter_rows_matches_pallas_kernel(mode, rng):
+    """The kernel step alone on a presorted batch; for ``add`` the JAX
+    kernel takes the runs folded by ``coalesce_add_runs`` beforehand,
+    which the port's kernel fuses."""
+    table, idx, vals = _arrays(rng, "float32", (48,))
+    order = np.argsort(np.asarray(idx), kind="stable")
+    sidx, svals = jnp.asarray(np.asarray(idx)[order]), vals[order]
+    folded = (jcoalesce.coalesce_add_runs(table, sidx, svals)
+              if mode == "add" else svals)
+    want = jkernel.scatter_rows(table, sidx, folded)
+    t_table, t_sidx, t_svals = _port(table, sidx, svals)
+    got = tkernel.scatter_rows(t_table, t_sidx, t_svals, mode=mode)
+    _assert_add_close(got, want, "float32")
+    if mode == "set":
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_coalesce_add_runs_matches_reference(dtype, rng):
+    table, idx, vals = _arrays(rng, dtype, (60,))
+    order = np.argsort(np.asarray(idx), kind="stable")
+    sidx, svals = jnp.asarray(np.asarray(idx)[order]), vals[order]
+    want = jcoalesce.coalesce_add_runs(table, sidx, svals)
+    got = tcoalesce.coalesce_add_runs(*_port(table, sidx, svals))
+    assert got.dtype == convert.to_tensor(np.asarray(table), "cpu").dtype
+    _assert_add_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("mode", ["set", "add"])
+def test_kernel_and_torch_backends_agree(mode, rng):
+    t_table, t_idx, t_vals = _port(*_arrays(rng, "float32", (3, 30)))
+    a = tops.sorted_scatter(t_table, t_idx, t_vals, mode=mode,
+                            backend="kernel")
+    b = tops.sorted_scatter(t_table, t_idx, t_vals, mode=mode,
+                            backend="torch")
+    assert torch.equal(a, b)
+
+
+def test_bf16_add_is_not_swallowed():
+    """Runs accumulate in float32 and round once: 128 addends of 0.5 onto
+    256 in bf16 give 320, where bf16 adds one at a time would stay 256."""
+    table = torch.full((4, 2), 256.0, dtype=torch.bfloat16)
+    vals = torch.full((128, 2), 0.5, dtype=torch.bfloat16)
+    out = tops.sorted_scatter(table, torch.zeros(128, dtype=torch.int32),
+                              vals, mode="add")
+    assert out[0].float().tolist() == [320.0, 320.0]
+    assert torch.equal(out[1:], table[1:])
+
+
+@pytest.mark.parametrize("mode", ["set", "add"])
+def test_table_is_not_changed_and_empty_batch(mode, rng):
+    t_table, t_idx, t_vals = _port(*_arrays(rng, "float32", (20,)))
+    before = t_table.clone()
+    tops.sorted_scatter(t_table, t_idx, t_vals, mode=mode)
+    assert torch.equal(t_table, before)
+    out = tops.sorted_scatter(t_table, torch.zeros(0, dtype=torch.int32),
+                              torch.zeros((0, D)), mode=mode)
+    assert torch.equal(out, before)
+
+
+def _bad(case):
+    table, sidx = torch.zeros((8, 4)), torch.tensor([1, 1, 3])
+    vals, mode = torch.ones((3, 4)), "set"
+    if case == "unsorted":
+        sidx = torch.tensor([3, 1, 1])
+    elif case == "out_of_range":
+        sidx = torch.tensor([1, 1, 8])
+    elif case == "negative":
+        sidx = torch.tensor([-1, 1, 3])
+    elif case == "vals_dtype":
+        vals = vals.double()
+    elif case == "vals_shape":
+        vals = torch.ones((3, 5))
+    elif case == "add_int_table":
+        table, vals, mode = table.int(), vals.int(), "add"
+    elif case == "mode":
+        mode = "max"
+    elif case == "strided_table":
+        table = torch.zeros((4, 8)).t()
+    return table, sidx, vals, mode
+
+
+@pytest.mark.parametrize("case", ["unsorted", "out_of_range", "negative",
+                                  "vals_dtype", "vals_shape", "add_int_table",
+                                  "mode", "strided_table"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(case):
+    table, sidx, vals, mode = _bad(case)
+    with pytest.raises(ValueError):
+        tkernel.scatter_rows(table, sidx, vals, mode=mode)
+
+
+@settings(max_examples=25, deadline=None)
+@given(st.lists(st.integers(0, 7), min_size=1, max_size=120),
+       st.sampled_from(["set", "add"]))
+def test_property_duplicate_heavy_ids_match_write_stream(ids, mode):
+    """Few distinct rows, long runs: the port equals the in-order write
+    stream of both packages' oracles."""
+    table = np.arange(16 * 4, dtype=np.float32).reshape(16, 4)
+    idx = np.asarray(ids, np.int32)
+    vals = (np.arange(len(ids), dtype=np.float32)[:, None]
+            * np.ones((1, 4), np.float32))
+    got = tops.sorted_scatter(torch.from_numpy(table), torch.from_numpy(idx),
+                              torch.from_numpy(vals), mode=mode)
+    want = jref.scatter_ref(jnp.asarray(table), jnp.asarray(idx),
+                            jnp.asarray(vals), mode)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    if mode == "set":
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
