@@ -1,7 +1,8 @@
 """Carry state across from the JAX reference package.
 
 Arrays arrive as numpy arrays (``np.asarray`` of a JAX array): tables,
-index streams, a ``HotRowCache``'s ``hot_ids`` / ``hot_data``. Configs
+index streams, a ``HotRowCache``'s ``hot_ids`` / ``hot_data``, a
+``CacheState``'s six arrays. Configs
 arrive as the nested dict of ``dataclasses.asdict`` of a reference
 ``MemoryControllerConfig``. Nothing here imports JAX or ``repro``.
 """
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import config as cfg
+from repro_torch.core.cache_engine import CacheState
 from repro_torch.core.controller import HotRowCache
 
 
@@ -34,6 +36,22 @@ def hot_row_cache(hot_ids, hot_data,
     """A reference ``HotRowCache``'s arrays as the port's, on ``device``."""
     return HotRowCache(hot_ids=to_tensor(hot_ids, device).to(torch.int32),
                        hot_data=to_tensor(hot_data, device))
+
+
+def cache_state(tags, valid, age, data, clock, dirty,
+                device: str | torch.device) -> CacheState:
+    """A reference ``CacheState``'s six arrays (in its field order) as the
+    port's, on ``device``: int32 tags and ages, bool valid and dirty bits,
+    a 0-d int32 clock; the Data RAM keeps its dtype."""
+    def i32(a):
+        return to_tensor(a, device).to(torch.int32)
+
+    def flag(a):
+        return to_tensor(a, device).to(torch.bool)
+
+    return CacheState(tags=i32(tags), valid=flag(valid), age=i32(age),
+                      data=to_tensor(data, device),
+                      clock=i32(clock).reshape(()), dirty=flag(dirty))
 
 
 _SUB_CONFIGS = {"scheduler": cfg.SchedulerConfig, "cache": cfg.CacheConfig,

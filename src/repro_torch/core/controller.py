@@ -3,9 +3,11 @@
 ``MemoryController`` routes irregular row requests (embedding rows, KV
 pages, graph adjacency) through the **scheduler** (batch → stable sort by
 row → gather/scatter → unsort) and optionally the **cache engine**
-(a pinned hot-row set, kept write-coherent). Counterpart of the data plane
-of ``repro.core.controller``; bulk DMA, trace capture and the modeled-timing
-entry points come in later slices of the port.
+(a pinned hot-row set, kept write-coherent), and bulk/streaming requests
+(weight tiles, KV flushes) through the **DMA engine** (``bulk_read`` /
+``bulk_write``). Counterpart of the data plane of
+``repro.core.controller``; trace capture and the modeled-timing entry
+points come in later slices of the port.
 
 Every path has the value semantics of the naive access (``table[idx]`` /
 the in-order write stream), so disabling an engine never changes results,
@@ -20,7 +22,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import scatter_util, scheduler
+from repro_torch.core import dma_engine, scatter_util, scheduler
 from repro_torch.core.config import MemoryControllerConfig
 from repro_torch.core.timing import DDR4_2400, DRAMTimings
 from repro_torch.kernels.sorted_gather import ops as sg_ops
@@ -133,8 +135,8 @@ class HotRowCache:
 class MemoryController:
     """The configured controller instance handed to models and pipelines.
 
-    ``use_kernels`` routes the scheduler path through the port's CUDA
-    kernels (their plain versions for CPU tensors). ``device`` is where
+    ``use_kernels`` routes the scheduler and DMA paths through the port's
+    CUDA kernels (their plain versions for CPU tensors). ``device`` is where
     the controller's tensors must lie — every entry point raises
     ``ValueError`` for a tensor elsewhere, so the CPU runs only when a
     caller asks for it (``device="cpu"``).
@@ -177,15 +179,13 @@ class MemoryController:
         Value-identical to the in-order write stream whether or not the
         scheduler reorders the batch: ``mode="set"`` resolves duplicate
         rows last-writer-wins; ``mode="add"`` accumulates in promoted
-        (≥f32) precision and rounds to the table dtype once. ``add``
-        takes values of the table's dtype only (``ValueError`` otherwise),
-        on every path, so the engine toggles keep one contract.
+        (≥f32) precision and rounds to the table dtype once — the values
+        are cast to that accumulator, not to the table's dtype, so float32
+        gradients into a bf16 table and ``add`` on an int32 table give the
+        reference's result on every path.
         """
         if mode not in ("set", "add"):
             raise ValueError(f"mode must be 'set' or 'add', got {mode!r}")
-        if mode == "add" and values.dtype != table.dtype:
-            raise ValueError(f"'add' values must be {table.dtype}, got "
-                             f"{values.dtype}")
         self._on_device(table, indices, values)
         if self.config.scheduler.enabled:
             return sorted_scatter(table, indices, values, mode=mode,
@@ -211,3 +211,32 @@ class MemoryController:
         if self.config.cache.enabled:
             return new_table, cache.repin(new_table)
         return new_table, cache
+
+    # --- bulk path ----------------------------------------------------------
+    def bulk_read(self, src: torch.Tensor) -> torch.Tensor:
+        """Bulk/streaming read of ``src`` (a weight tile): a copy of it,
+        through the DMA engine's staging path when the engine is on."""
+        self._on_device(src)
+        if self.config.dma.enabled:
+            return dma_engine.bulk_copy(src, config=self.config.dma,
+                                        use_kernels=self.use_kernels)
+        return src.clone(memory_format=torch.contiguous_format)
+
+    def bulk_write(self, dst: torch.Tensor, src: torch.Tensor,
+                   *, offset_elems: int = 0) -> torch.Tensor:
+        """Bulk/streaming write of ``src`` into ``dst`` (weight tiles,
+        activation spills, KV page flushes). Value-identical to writing
+        the flat region ``[offset, offset+src.size)`` of a copy of ``dst``
+        with ``src`` cast to ``dst``'s dtype; ``dst`` is not changed. A
+        region outside ``dst`` raises ``ValueError`` on every path."""
+        self._on_device(dst, src)
+        if offset_elems < 0 or offset_elems + src.numel() > dst.numel():
+            raise ValueError("bulk_write region out of destination bounds")
+        if self.config.dma.enabled:
+            return dma_engine.bulk_write(dst, src, config=self.config.dma,
+                                         offset_elems=offset_elems,
+                                         use_kernels=self.use_kernels)
+        out = dst.clone(memory_format=torch.contiguous_format)
+        out.view(-1)[offset_elems:offset_elems + src.numel()] = \
+            src.reshape(-1).to(dst.dtype)
+        return out

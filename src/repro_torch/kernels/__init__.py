@@ -10,7 +10,9 @@ use by ``_build``:
 * ``bitonic_sort``   — the scheduler's reordering network (paper Fig. 2)
 * ``sorted_gather``  — the row gather behind the scheduled read path
 * ``sorted_scatter`` — the run-coalescing row write behind the write path
+* ``dma_copy``       — the DMA engine's staged bulk copy (paper §IV-B)
+* ``cache_lookup``   — the cache engine's tag/LRU pipeline (paper §IV-A)
 
-Counterpart of ``repro.kernels`` (Pallas, TPU); its ``dma_copy``,
-``cache_lookup`` and ``flash_attention`` kernels are not ported yet.
+Counterpart of ``repro.kernels`` (Pallas, TPU); its ``flash_attention``
+kernel is not ported yet.
 """

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("bitonic_sort", "sorted_gather", "sorted_scatter")
+SOURCES = ("bitonic_sort", "sorted_gather", "sorted_scatter", "dma_copy",
+           "cache_lookup")
 # ``sm_90a`` (not ``sm_90``): the Hopper-only target.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -1,0 +1,131 @@
+"""Cache probe — the cache engine's tag/LRU pipeline (paper §IV-A, Fig. 3/4).
+
+``cache_probe(line_ids, tags, valid, age, clock)`` runs a request batch
+through the tag store in arrival order and returns (hits (N,), way (N,),
+tags', valid', age', clock'), all int32, like the reference kernel. Beat
+``i`` stamps age ``clock + i + 1`` and touches only its own set, so sets
+are independent. On a CUDA tensor it launches the kernel of
+``csrc/cache_lookup.cu`` (one warp per set, the ways on lanes, after the
+beats are grouped by set); on a CPU tensor it runs ``cache_probe_plain``,
+the same walk as a lockstep over the sets: at depth ``j`` every set
+serves its ``j``-th beat. Counterpart of
+``repro.kernels.cache_lookup.kernel``.
+
+The kernel owns metadata only; the data path is composed around it in
+``ops.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._build import I32, P, CudaLibrary
+
+LIB = CudaLibrary("cache_lookup", {"cache_probe": (P,) * 13 + (I32,) * 3
+                                   + (P,)})
+MAX_WAYS = 32          # one warp per set, one lane per way
+
+
+def group_by_set(set_idx: torch.Tensor, sets: int):
+    """(order, start): the beats stably sorted by set, and each set's first
+    position in that order (``start[s]:start[s + 1]`` are set ``s``'s
+    beats, in arrival order)."""
+    order = torch.sort(set_idx, stable=True).indices
+    start = torch.zeros(sets + 1, dtype=torch.int64, device=set_idx.device)
+    torch.cumsum(torch.bincount(set_idx, minlength=sets), 0, out=start[1:])
+    return order, start
+
+
+def cache_probe_plain(line_ids, tags, valid, age, clock):
+    sets, ways = tags.shape
+    lids = line_ids.long()
+    n = lids.shape[0]
+    set_idx, tag = lids % sets, lids // sets
+    order, start = group_by_set(set_idx, sets)
+    depth = torch.empty_like(order)
+    depth[order] = torch.arange(n, device=lids.device) - start[set_idx[order]]
+    by_depth = torch.sort(depth, stable=True).indices
+    tags, valid, age = tags.clone(), valid.clone(), age.clone()
+    hits = torch.zeros(n, dtype=torch.int32, device=lids.device)
+    out_ways = torch.zeros(n, dtype=torch.int32, device=lids.device)
+    clock0 = clock.reshape(()).long()
+    lo = 0
+    for count in torch.bincount(depth).tolist() if n else []:
+        beats = by_depth[lo:lo + count]     # one beat of each live set
+        lo += count
+        s, t = set_idx[beats], tag[beats].int()
+        match = (valid[s] != 0) & (tags[s] == t[:, None])
+        hit = match.any(1)
+        way = torch.where(hit, match.to(torch.uint8).argmax(1),
+                          age[s].argmin(1))
+        tags[s, way] = t
+        valid[s, way] = 1
+        age[s, way] = (clock0 + beats + 1).int()
+        hits[beats] = hit.int()
+        out_ways[beats] = way.int()
+    return (hits, out_ways, tags, valid, age,
+            (clock.reshape(1) + n).to(torch.int32))
+
+
+def cache_probe(line_ids: torch.Tensor, tags: torch.Tensor,
+                valid: torch.Tensor, age: torch.Tensor, clock: torch.Tensor,
+                *, limit: int = 1 << 31):
+    """Run a request batch through the tag/LRU pipeline.
+
+    ``line_ids`` is 1-D int32 or int64 with every id in ``[0, limit)``,
+    ``limit <= 2^31`` (a caller that serves a table passes its row count) —
+    C's ``%`` is not Python's for a negative id, so one raises;
+    ``tags``/``valid``/``age`` are contiguous ``(sets, ways)`` int32 with
+    ``ways <= 32``; ``clock`` holds one int32. Anything else raises
+    ``ValueError``. Returns (hits, ways, tags', valid', age', clock'), all
+    int32; the inputs are not changed.
+    """
+    devices = {t.device for t in (line_ids, tags, valid, age, clock)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
+    dev = tags.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    if line_ids.ndim != 1 or line_ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"line_ids must be 1-D int32 or int64, got "
+                         f"{line_ids.dtype} of shape {tuple(line_ids.shape)}")
+    if tags.ndim != 2 or not 1 <= tags.shape[1] <= MAX_WAYS:
+        raise ValueError(f"tags must be (sets, ways <= {MAX_WAYS}), got "
+                         f"{tuple(tags.shape)}")
+    for name, t in (("tags", tags), ("valid", valid), ("age", age)):
+        if t.shape != tags.shape or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32 "
+                             f"{tuple(tags.shape)}")
+    if clock.numel() != 1 or clock.dtype != torch.int32:
+        raise ValueError("clock must hold one int32")
+    if not 0 < limit <= 1 << 31:
+        raise ValueError(f"limit={limit}: need 0 < limit <= 2^31")
+    n = line_ids.shape[0]
+    if n:
+        lo, hi = torch.stack(torch.aminmax(line_ids)).tolist()
+        if lo < 0 or hi >= limit:
+            raise ValueError(f"line id range [{lo}, {hi}] outside "
+                             f"[0, {limit})")
+    if dev.type == "cpu":
+        return cache_probe_plain(line_ids, tags, valid, age, clock)
+    sets, ways = tags.shape
+    hits = torch.zeros(n, dtype=torch.int32, device=dev)
+    out_ways = torch.zeros(n, dtype=torch.int32, device=dev)
+    new = [torch.empty_like(t) for t in (tags, valid, age)]
+    clock = clock.reshape(1).contiguous()
+    if n == 0:
+        for dst, src in zip(new, (tags, valid, age)):
+            dst.copy_(src)
+        return (hits, out_ways, *new, clock.clone())
+    lids = line_ids.to(torch.int32).contiguous()
+    order, start = group_by_set(lids % sets, sets)
+    order, start = order.to(torch.int32), start.to(torch.int32)
+    new_clock = torch.empty_like(clock)
+    LIB.launch("cache_probe", lids.data_ptr(), order.data_ptr(),
+               start.data_ptr(), tags.data_ptr(), valid.data_ptr(),
+               age.data_ptr(), clock.data_ptr(), hits.data_ptr(),
+               out_ways.data_ptr(), *(t.data_ptr() for t in new),
+               new_clock.data_ptr(), sets, ways, n,
+               torch.cuda.current_stream(dev).cuda_stream)
+    return (hits, out_ways, *new, new_clock)

@@ -1,0 +1,132 @@
+// Cache probe: the cache engine's tag/LRU pipeline over a batch of line
+// ids -- per beat, the tag compare, the LRU decision and the metadata
+// update; returns each beat's hit and way and the new tags, valid bits,
+// ages and clock.
+//
+// Replaces the TPU kernel src/repro/kernels/cache_lookup/kernel.py
+// (cache_probe), which keeps the whole tag store in VMEM and walks all N
+// beats in arrival order with a fori_loop, comparing the ways on vector
+// lanes.
+//
+// Bound on the H100: neither bytes nor operations but the longest chain of
+// dependent beats. The state at the Table I maximum (32768 ways x 3 int32,
+// 384 KiB) does not fit one block's shared memory, and one walker over all
+// N beats would leave the card idle. But beat i always stamps age
+// clock0 + i + 1 and touches only its own set, so the sets are
+// independent. Design: one warp per set, the ways on lanes (ways <= 32).
+// The warp holds its set's tags, valid bits and ages in registers, walks
+// that set's beats in arrival order -- __ballot_sync finds the match (the
+// lowest matching way wins, as jnp.argmax does), a butterfly argmin over
+// (age, way) picks the victim (the lowest way among equal ages, as
+// jnp.argmin does), the owning lane updates its registers -- and writes
+// the state back once. The wrapper groups the beats by set (a stable sort
+// of line % sets and per-set start offsets); the warp reads its beats 32
+// at a time, one per lane, and hands them round with __shfl_sync. The
+// longest per-set chain sets the time: a hot set is walked by one warp.
+#include <limits.h>
+
+#include "common.cuh"
+
+constexpr int kProbeWarps = 4;  // sets per block, one warp each
+constexpr unsigned kFull = 0xffffffffu;
+
+__global__ void __launch_bounds__(kProbeWarps * 32)
+cache_probe_kernel(const int* __restrict__ line_ids,
+                   const int* __restrict__ order,
+                   const int* __restrict__ set_start,
+                   const int* __restrict__ tags_in,
+                   const int* __restrict__ valid_in,
+                   const int* __restrict__ age_in,
+                   const int* __restrict__ clock_in, int* __restrict__ hits,
+                   int* __restrict__ ways_out, int* __restrict__ tags_out,
+                   int* __restrict__ valid_out, int* __restrict__ age_out,
+                   int* __restrict__ clock_out, int sets, int ways, int n) {
+  const int lane = threadIdx.x & 31;
+  const long long set =
+      static_cast<long long>(blockIdx.x) * kProbeWarps + (threadIdx.x >> 5);
+  const unsigned clock0 = static_cast<unsigned>(clock_in[0]);
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    clock_out[0] = static_cast<int>(clock0 + static_cast<unsigned>(n));
+  if (set >= sets) return;  // the whole warp leaves together
+  const bool live = lane < ways;
+  const long long slot = set * ways + lane;
+  int tag = live ? tags_in[slot] : 0;
+  int valid = live ? valid_in[slot] : 0;
+  int age = live ? age_in[slot] : INT_MAX;
+  const int lo = set_start[set], hi = set_start[set + 1];
+  for (int base = lo; base < hi; base += 32) {
+    const int count = min(32, hi - base);
+    int my_beat = 0, my_line = 0, my_hit = 0, my_way = 0;
+    if (lane < count) {
+      my_beat = order[base + lane];
+      my_line = line_ids[my_beat];
+    }
+    for (int b = 0; b < count; ++b) {
+      const int beat = __shfl_sync(kFull, my_beat, b);
+      const int t = __shfl_sync(kFull, my_line, b) / sets;
+      const unsigned match = __ballot_sync(kFull, live && valid && tag == t);
+      // LRU victim: the lowest (age, way); lanes past `ways` hold INT_MAX
+      // and a larger way, so they never win over a live lane.
+      int best_age = age, best_way = lane;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const int other_age = __shfl_xor_sync(kFull, best_age, off);
+        const int other_way = __shfl_xor_sync(kFull, best_way, off);
+        if (other_age < best_age ||
+            (other_age == best_age && other_way < best_way)) {
+          best_age = other_age;
+          best_way = other_way;
+        }
+      }
+      const int hit = match != 0u;
+      const int way = hit ? __ffs(match) - 1 : best_way;
+      if (lane == way) {
+        tag = t;
+        valid = 1;
+        age = static_cast<int>(clock0 + static_cast<unsigned>(beat) + 1u);
+      }
+      if (lane == b) {
+        my_hit = hit;
+        my_way = way;
+      }
+    }
+    if (lane < count) {
+      hits[my_beat] = my_hit;
+      ways_out[my_beat] = my_way;
+    }
+  }
+  if (live) {
+    tags_out[slot] = tag;
+    valid_out[slot] = valid;
+    age_out[slot] = age;
+  }
+}
+
+// line_ids: (n,) int32, >= 0; order: (n,) int32, the beats stably sorted by
+// line % sets; set_start: (sets + 1,) int32, set s's beats are
+// order[set_start[s] : set_start[s + 1]]; tags/valid/age: (sets, ways)
+// int32, ways <= 32; clock: (1,) int32. Outputs: hits, ways (n,) int32, the
+// new state of the same shapes. 1 <= n < 2^31.
+extern "C" int cache_probe(const void* line_ids, const void* order,
+                           const void* set_start, const void* tags,
+                           const void* valid, const void* age,
+                           const void* clock, void* hits, void* ways_out,
+                           void* tags_out, void* valid_out, void* age_out,
+                           void* clock_out, int sets, int ways, int n,
+                           void* stream) {
+  if (sets < 1 || ways < 1 || ways > 32 || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid =
+      static_cast<unsigned>((static_cast<long long>(sets) + kProbeWarps - 1) /
+                            kProbeWarps);
+  cache_probe_kernel<<<grid, kProbeWarps * 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(line_ids), static_cast<const int*>(order),
+      static_cast<const int*>(set_start), static_cast<const int*>(tags),
+      static_cast<const int*>(valid), static_cast<const int*>(age),
+      static_cast<const int*>(clock), static_cast<int*>(hits),
+      static_cast<int*>(ways_out), static_cast<int*>(tags_out),
+      static_cast<int*>(valid_out), static_cast<int*>(age_out),
+      static_cast<int*>(clock_out), sets, ways, n);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -14,16 +14,17 @@
 // only the block of a run's LAST slot (sorted_idx[i] != sorted_idx[i+1], or
 // i = n-1) writes; every other block returns after reading two indices.
 // "set" copies the winning row with the widest aligned access. "add" finds
-// the run's first slot by binary search (the indices are sorted), sums the
-// run's rows in arrival order in float32 (float64 for a float64 table),
-// adds the table row in that precision and rounds once to the table's type
-// -- the reference's promoted-precision rule. No atomics, so the result is
-// the same on every run. A long run (a hot token's gradient) is summed by
+// the run's first slot by binary search (the indices are sorted), casts
+// each value to the accumulator type promote(float32, T) -- float32, or
+// float64 for a float64 table -- sums the run's rows in arrival order, adds
+// the table row in that precision and rounds once to the table's type T
+// (an int32 table truncates toward zero) -- the reference's promoted-
+// precision rule. The values may have another type V than the table
+// (float32 gradients into a bf16 table). No atomics, so the result is the
+// same on every run. A long run (a hot token's gradient) is summed by
 // ceil(d / 1024) blocks, each owning 1024 columns, four per thread.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
-
-#include <utility>
 
 #include "common.cuh"
 
@@ -43,13 +44,28 @@ scatter_set_kernel(char* __restrict__ table, const int* __restrict__ sidx,
   copy_row<V>(table + row * row_bytes, svals + i * row_bytes, row_bytes);
 }
 
-__device__ __forceinline__ float to_acc(float x) { return x; }
-__device__ __forceinline__ double to_acc(double x) { return x; }
-__device__ __forceinline__ float to_acc(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_acc(__half x) { return __half2float(x); }
+// The accumulator of a table of type T: promote(float32, T).
+template <typename T> struct AccOf { using type = float; };
+template <> struct AccOf<double> { using type = double; };
 
+// A value of type V cast to the accumulator A, as ``astype(A)`` does.
+template <typename A> __device__ __forceinline__ A cast_acc(float x) {
+  return A(x);
+}
+template <typename A> __device__ __forceinline__ A cast_acc(double x) {
+  return A(x);
+}
+template <typename A> __device__ __forceinline__ A cast_acc(int x) {
+  return A(x);
+}
+template <typename A> __device__ __forceinline__ A cast_acc(__nv_bfloat16 x) {
+  return A(__bfloat162float(x));
+}
+template <typename A> __device__ __forceinline__ A cast_acc(__half x) {
+  return A(__half2float(x));
+}
+
+// The accumulator rounded once to the table's type.
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(double* p, double v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
@@ -58,16 +74,19 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 __device__ __forceinline__ void store(__half* p, float v) {
   *p = __float2half_rn(v);
 }
+__device__ __forceinline__ void store(int* p, float v) {
+  *p = __float2int_rz(v);
+}
 
 constexpr int kAddThreads = 256;
 constexpr int kAddCols = 4;  // columns per thread
 constexpr int kAddBlockCols = kAddThreads * kAddCols;
 
-template <typename T>
+template <typename T, typename V>
 __global__ void __launch_bounds__(kAddThreads)
 scatter_add_kernel(T* __restrict__ table, const int* __restrict__ sidx,
-                   const T* __restrict__ svals, long long n, long long d) {
-  using Acc = decltype(to_acc(std::declval<T>()));
+                   const V* __restrict__ svals, long long n, long long d) {
+  using Acc = typename AccOf<T>::type;
   const long long i = blockIdx.x;
   if (!is_run_end(sidx, i, n)) return;
   const int row = sidx[i];
@@ -82,18 +101,18 @@ scatter_add_kernel(T* __restrict__ table, const int* __restrict__ sidx,
 #pragma unroll
   for (int q = 0; q < kAddCols; ++q) acc[q] = Acc(0);
   for (long long k = lo; k <= i; ++k) {
-    const T* src = svals + k * d;
+    const V* src = svals + k * d;
 #pragma unroll
     for (int q = 0; q < kAddCols; ++q) {
       const long long c = c0 + q * kAddThreads;
-      if (c < d) acc[q] += to_acc(src[c]);
+      if (c < d) acc[q] += cast_acc<Acc>(src[c]);
     }
   }
   T* dst = table + static_cast<long long>(row) * d;
 #pragma unroll
   for (int q = 0; q < kAddCols; ++q) {
     const long long c = c0 + q * kAddThreads;
-    if (c < d) store(dst + c, to_acc(dst[c]) + acc[q]);
+    if (c < d) store(dst + c, cast_acc<Acc>(dst[c]) + acc[q]);
   }
 }
 
@@ -105,14 +124,29 @@ static void launch_set(void* table, const void* sidx, const void* svals,
       static_cast<const char*>(svals), n, row_bytes);
 }
 
-template <typename T>
+template <typename T, typename V>
 static void launch_add(void* table, const void* sidx, const void* svals,
                        long long n, long long d, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(n),
                   static_cast<unsigned>((d + kAddBlockCols - 1) / kAddBlockCols));
-  scatter_add_kernel<T><<<grid, kAddThreads, 0, s>>>(
+  scatter_add_kernel<T, V><<<grid, kAddThreads, 0, s>>>(
       static_cast<T*>(table), static_cast<const int*>(sidx),
-      static_cast<const T*>(svals), n, d);
+      static_cast<const V*>(svals), n, d);
+}
+
+// Type codes: 0 float32, 1 bfloat16, 2 float16, 3 float64, 4 int32.
+template <typename T>
+static bool launch_add_values(int vtype, void* table, const void* sidx,
+                              const void* svals, long long n, long long d,
+                              cudaStream_t s) {
+  switch (vtype) {
+    case 0: launch_add<T, float>(table, sidx, svals, n, d, s); return true;
+    case 1: launch_add<T, __nv_bfloat16>(table, sidx, svals, n, d, s); return true;
+    case 2: launch_add<T, __half>(table, sidx, svals, n, d, s); return true;
+    case 3: launch_add<T, double>(table, sidx, svals, n, d, s); return true;
+    case 4: launch_add<T, int>(table, sidx, svals, n, d, s); return true;
+    default: return false;
+  }
 }
 
 // table: (R, row_bytes) bytes, written in place; sorted_idx: (n,) int32,
@@ -131,18 +165,22 @@ extern "C" int scatter_set_rows(void* table, const void* sorted_idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 float32, 1 bfloat16, 2 float16, 3 float64. table: (R, d) of that
-// type, written in place; svals: (n, d) of that type. d < 2^16 * 1024.
+// ttype, vtype: type codes of the table and the values (see
+// launch_add_values). table: (R, d) of ttype, written in place; svals:
+// (n, d) of vtype. d < 2^16 * 1024.
 extern "C" int scatter_add_runs(void* table, const void* sorted_idx,
                                 const void* svals, long long n, long long d,
-                                int dtype, void* stream) {
+                                int ttype, int vtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: launch_add<float>(table, sorted_idx, svals, n, d, s); break;
-    case 1: launch_add<__nv_bfloat16>(table, sorted_idx, svals, n, d, s); break;
-    case 2: launch_add<__half>(table, sorted_idx, svals, n, d, s); break;
-    case 3: launch_add<double>(table, sorted_idx, svals, n, d, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  bool ok;
+  switch (ttype) {
+    case 0: ok = launch_add_values<float>(vtype, table, sorted_idx, svals, n, d, s); break;
+    case 1: ok = launch_add_values<__nv_bfloat16>(vtype, table, sorted_idx, svals, n, d, s); break;
+    case 2: ok = launch_add_values<__half>(vtype, table, sorted_idx, svals, n, d, s); break;
+    case 3: ok = launch_add_values<double>(vtype, table, sorted_idx, svals, n, d, s); break;
+    case 4: ok = launch_add_values<int>(vtype, table, sorted_idx, svals, n, d, s); break;
+    default: ok = false;
   }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

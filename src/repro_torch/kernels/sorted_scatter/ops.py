@@ -29,8 +29,10 @@ def sorted_scatter(table: torch.Tensor, indices: torch.Tensor,
     plain-torch path (``backend="torch"``, last-of-run rows via
     ``masked_row_set``) the controller takes with kernels off. Returns a
     new table; ``table`` is not changed. ``set`` values are cast to the
-    table's dtype; ``add`` values must already have it (a cast first would
-    round them before the promoted-precision sum), else ``ValueError``."""
+    table's dtype; ``add`` values keep theirs and are cast to the
+    accumulator ``promote_types(float32, table.dtype)`` inside the fold,
+    as the reference's ``astype`` does, so a float32 gradient is not
+    rounded to a bf16 table's dtype before it is summed."""
     if mode not in ("set", "add"):
         raise ValueError(f"mode must be 'set' or 'add', got {mode!r}")
     if backend not in ("kernel", "torch"):

@@ -198,22 +198,74 @@ def test_empty_hot_set_is_all_miss(rng):
     assert torch.equal(cache.gather(t_table, t_idx), t_table[t_idx.long()])
 
 
-@pytest.mark.parametrize("sched,use_kernels",
-                         [(True, True), (True, False), (False, True)])
+TOGGLES = [(True, True), (True, False), (False, True), (False, False)]
+"""(scheduler, use_kernels): every path of the port's ``scatter``."""
+
+
+@pytest.mark.parametrize("sched,use_kernels", TOGGLES)
 def test_set_casts_values_to_the_table_dtype(sched, use_kernels, rng):
     """float32 values into a bf16 table: ``set`` rounds them to bf16 on
-    every path, as the reference's XLA path does; ``add`` refuses them on
-    every path rather than round them before the float32 sum."""
+    every path, as the reference's XLA path does; ``add`` sums them in
+    float32 and rounds once to bf16 on every path, as the reference does
+    (the float32 gradients of a bf16 embedding table)."""
     jmc, tmc = _pair(sched, True, use_pallas=False, use_kernels=use_kernels)
     table, idx, _ = _inputs(rng, "bfloat16", (30,))
-    vals = jnp.asarray(rng.standard_normal((30, D)), jnp.float32)
+    vals = jnp.asarray(rng.standard_normal((30, D)) * 1e-3, jnp.float32)
     t_table, t_idx, t_vals = _port(table, idx, vals)
     got = tmc.scatter(t_table, t_idx, t_vals)
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(_f32(got), _f32(jmc.scatter(table, idx,
                                                               vals)))
-    with pytest.raises(ValueError, match="'add' values"):
-        tmc.scatter(t_table, t_idx, t_vals, mode="add")
+    got = tmc.scatter(t_table, t_idx, t_vals, mode="add")
+    assert got.dtype == torch.bfloat16
+    _assert_scatter_close(got, jmc.scatter(table, idx, vals, mode="add"),
+                          "add", "bfloat16")
+
+
+@pytest.mark.parametrize("sched,use_kernels", TOGGLES)
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_f32_add_into_a_bf16_table_is_not_rounded_first(sched, use_kernels,
+                                                        use_pallas):
+    """0.001 four times onto a zero bf16 row: the reference sums at
+    float32 and gives bf16(0.002) for row 0 (two addends) — not the sum of
+    two bf16(0.001) — on every path of both packages."""
+    jmc, tmc = _pair(sched, True, use_pallas=use_pallas,
+                     use_kernels=use_kernels)
+    idx = np.asarray([0, 2, 3, 0], np.int32)
+    vals = np.full((4, 3), 0.001, np.float32)
+    table = jnp.zeros((4, 3), jnp.bfloat16)
+    want = jmc.scatter(table, jnp.asarray(idx), jnp.asarray(vals), mode="add")
+    got = tmc.scatter(*_port(table, idx, vals), mode="add")
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+    assert got[0].tolist() == [torch.tensor(0.002).bfloat16().item()] * 3
+
+
+@pytest.mark.parametrize("sched,use_kernels", TOGGLES)
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("vdtype", ["int32", "float32"])
+def test_add_on_an_int32_table_matches_reference(sched, use_kernels,
+                                                 use_pallas, vdtype):
+    """``add`` into an int32 table sums at float32 and truncates toward
+    zero once: ``[[14,15,16],[3,4,5],[13,14,15],[16,17,18]]`` for 7 added
+    at rows 0, 2, 3, 0 of ``arange(12)``, on every path of both packages;
+    float32 values (exact quarters, so no sum order rounds) likewise."""
+    jmc, tmc = _pair(sched, True, use_pallas=use_pallas,
+                     use_kernels=use_kernels)
+    table = np.arange(12, dtype=np.int32).reshape(4, 3)
+    idx = np.asarray([0, 2, 3, 0], np.int32)
+    vals = np.full((4, 3), 7, np.int32) if vdtype == "int32" else \
+        np.asarray([[2.25], [-7.75], [1.5], [4.75]], np.float32).repeat(3, 1)
+    want = np.asarray(jmc.scatter(jnp.asarray(table), jnp.asarray(idx),
+                                  jnp.asarray(vals), mode="add"))
+    got = tmc.scatter(*_port(table, idx, vals), mode="add")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if vdtype == "int32":
+        assert got.tolist() == [[14, 15, 16], [3, 4, 5], [13, 14, 15],
+                                [16, 17, 18]]
+    else:                          # 6 - 7.75 = -1.75 truncates to -1
+        assert got[:, 0].tolist() == [7, 3, -1, 10]
 
 
 def test_bad_mode_raises():

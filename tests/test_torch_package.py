@@ -4,6 +4,7 @@ neither JAX nor the reference package, import without ``nvcc`` or
 from a kernel to its plain version for a tensor off the CPU."""
 
 import ast
+import inspect
 import os
 import pathlib
 import shutil
@@ -14,11 +15,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import MemoryController, PAPER_EVAL_CONFIG
+from repro_torch.core import (CacheConfig, MemoryController,
+                              PAPER_EVAL_CONFIG, init_cache)
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitonic_sort import kernel as bs_kernel
+from repro_torch.kernels.cache_lookup import kernel as cl_kernel
+from repro_torch.kernels.cache_lookup import ops as cl_ops
+from repro_torch.kernels.dma_copy import kernel as dc_kernel
 from repro_torch.kernels.sorted_gather import kernel as sg_kernel
 from repro_torch.kernels.sorted_scatter import kernel as ss_kernel
+
+LIBS = (bs_kernel.LIB, sg_kernel.LIB, ss_kernel.LIB, dc_kernel.LIB,
+        cl_kernel.LIB)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -111,12 +119,22 @@ def test_controller_runs_on_the_gpu_unless_asked():
     from repro_torch.core import HotRowCache
     with pytest.raises(ValueError, match="cuda"):
         mc.cached_gather(table, idx, HotRowCache(cache_ids, table[:1]))
+    with pytest.raises(ValueError, match="cuda"):
+        mc.bulk_read(table)
+    with pytest.raises(ValueError, match="cuda"):
+        mc.bulk_write(table, torch.ones(4), offset_elems=3)
+    assert inspect.signature(init_cache).parameters["device"].default \
+        == "cuda"
     cpu = MemoryController(PAPER_EVAL_CONFIG, device="cpu")
     assert torch.equal(cpu.gather(table, idx), table[idx])
+    assert torch.equal(cpu.bulk_read(table), table)
+    assert torch.equal(cpu.bulk_write(table, torch.ones(4), offset_elems=3)
+                       .reshape(-1)[3:7], torch.ones(4))
 
 
 @pytest.mark.parametrize("call", ["sort", "gather", "scatter_set",
-                                  "scatter_add"])
+                                  "scatter_add", "dma_copy", "cache_probe",
+                                  "cache_service"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
     """For a tensor on another device than the CPU the wrappers launch the
     kernel or raise; on the ``meta`` device (no data, no kernel) they raise
@@ -131,11 +149,20 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
             bs_kernel.bitonic_sort_batched(i32, i32)
         elif call == "gather":
             sg_kernel.gather_rows(table, sidx)
+        elif call == "dma_copy":
+            dc_kernel.staged_copy(table.reshape(-1), vals.new_zeros(32),
+                                  chunk_elems=128, channels=4)
+        elif call.startswith("cache"):
+            state = init_cache(CacheConfig(num_lines=256), 4, device=dev)
+            if call == "cache_probe":
+                cl_kernel.cache_probe(sidx, state.tags, state.age,
+                                      state.age, state.clock)
+            else:
+                cl_ops.cache_service(table, sidx, state)
         else:
             ss_kernel.scatter_rows(table, sidx, vals,
                                    mode=call.removeprefix("scatter_"))
-    assert bs_kernel.LIB.launches == sg_kernel.LIB.launches \
-        == ss_kernel.LIB.launches == 0
+    assert [lib.launches for lib in LIBS] == [0] * len(LIBS)
 
 
 def test_build_command_targets_hopper():

@@ -100,6 +100,42 @@ def test_add_matches_pallas_op(dtype, shape, rng):
                       dtype)
 
 
+@pytest.mark.parametrize("tdtype,vdtype", [
+    ("bfloat16", "float32"), ("float16", "float32"), ("float32", "bfloat16"),
+    ("int32", "int32"), ("int32", "float32"), ("float32", "int32")])
+@pytest.mark.parametrize("use_bitonic", [False, True])
+def test_add_of_another_value_dtype_matches_pallas_op(tdtype, vdtype,
+                                                      use_bitonic, rng):
+    """Values of another dtype than the table are cast to the accumulator
+    ``promote_types(float32, table.dtype)``, summed there and rounded once
+    (an int32 table truncates toward zero), as the reference's
+    ``coalesce_add_runs`` does. Integer-valued addends keep every sum
+    exact, so int32 tables are bit-equal; float tables as above."""
+    table, idx, _ = _arrays(rng, "float32", (40,))
+    if tdtype == "int32":
+        table = jnp.asarray(rng.integers(-50, 50, (VOCAB, D)), jnp.int32)
+    table = table.astype(tdtype)
+    raw = rng.standard_normal((40, D)) * (4 if tdtype == "int32" else 1e-2)
+    vals = jnp.asarray(np.round(raw * 4) / 4 if tdtype == "int32" else raw,
+                       jnp.float32).astype(vdtype)
+    want = jops.sorted_scatter(table, idx, vals, mode="add",
+                               use_bitonic=use_bitonic)
+    t_table, t_idx, t_vals = _port(table, idx, vals)
+    got = tops.sorted_scatter(t_table, t_idx, t_vals, mode="add",
+                              use_bitonic=use_bitonic)
+    assert got.dtype == t_table.dtype
+    if tdtype == "int32":
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    elif tdtype == "float16":      # one float16 ulp
+        w16 = np.asarray(want).astype(np.float16)
+        assert (np.abs(_as_f32(got) - w16.astype(np.float32))
+                <= np.spacing(np.abs(w16)).astype(np.float32)).all()
+    else:
+        _assert_add_close(got, want, tdtype)
+    assert torch.equal(got, tops.sorted_scatter(t_table, t_idx, t_vals,
+                                                mode="add", backend="torch"))
+
+
 @pytest.mark.parametrize("mode", ["set", "add"])
 def test_scatter_rows_matches_pallas_kernel(mode, rng):
     """The kernel step alone on a presorted batch; for ``add`` the JAX
@@ -174,8 +210,8 @@ def _bad(case):
         vals = vals.double()
     elif case == "vals_shape":
         vals = torch.ones((3, 5))
-    elif case == "add_int_table":
-        table, vals, mode = table.int(), vals.int(), "add"
+    elif case == "add_int_table":      # int32 adds; int64 has no type code
+        table, vals, mode = table.long(), vals.long(), "add"
     elif case == "mode":
         mode = "max"
     elif case == "strided_table":
