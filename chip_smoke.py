@@ -17,8 +17,13 @@ Phases (a failing phase raises and the script exits non-zero):
    whole trajectory: hits, ways, tags, valid bits, ages, clock), ``add``
    within float32 reassociation (rtol = atol = 1e-5) for float32 and
    float64 tables and within one bf16 or f16 ulp for those; float32
-   values summed into a bf16 or f16 table are held by ``check_mixed_add``.
-4. slice — three main paths, each through the entry points a user calls,
+   values summed into a bf16 or f16 table are held by ``check_mixed_add``;
+   flash attention (B6) by ``check_attention``: float32 within the
+   reference's rtol = atol = 3e-5, bf16 and f16 bit-equal to the kernel's
+   own float32 result rounded once, and that within 3e-5 of the plain
+   float32 result (at the serve path's shape, windows, bidirectional hd
+   80, MQA, ragged S, S = 1).
+4. slice — four main paths, each through the entry points a user calls,
    with every launch counter zeroed just before it and read just after;
    each of its kernels must have run:
    - scheduler: the controller's data plane at the yi-34b embedding table
@@ -39,6 +44,15 @@ Phases (a failing phase raises and the script exits non-zero):
      28 lines of each token of sequence 0 of the prefill batch; lines
      held to ``table[line_ids]``, hits to the numpy ``hit_rate_oracle``,
      the new state to the plain probe and a plain last-writer scatter.
+   - serve: ``repro_torch.launch.serve.Server("yi-34b")`` at the full
+     configuration (60 layers, 68.78 GB of bf16 weights, random from
+     seed 0) serving the reference CLI's mix: 12 requests of 1024 uniform
+     token ids, 16 new tokens each, arriving every 3 cycles (batches of 8
+     and 4). Flash attention must launch once per layer per batch, and
+     the scheduler's sort and gather from the embedding lookups. Held to
+     itself with kernels off (last-token prefill logits, greedy tokens)
+     and a decode step to the cache-free forward of its prefix. Runs
+     after every earlier phase's tensors are freed.
 5. timing — per kernel at the main paths' shapes: the CUDA-event median
    of the kernel's wrapper, its plain version and one PyTorch library
    call computing the same function (none for the cache probe: no
@@ -51,6 +65,9 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -76,22 +93,26 @@ from repro_torch.kernels.cache_lookup import kernel as cl_kernel  # noqa: E402
 from repro_torch.kernels.cache_lookup import ops as cl_ops  # noqa: E402
 from repro_torch.kernels.dma_copy import kernel as dc_kernel  # noqa: E402
 from repro_torch.kernels.dma_copy import ops as dc_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.sorted_gather import kernel as sg_kernel  # noqa: E402
 from repro_torch.kernels.sorted_scatter import kernel as ss_kernel  # noqa: E402
+from repro_torch.launch.serve import Request, Server  # noqa: E402
+from repro_torch.models.params import leaves  # noqa: E402
 
 LIBS = {"bitonic_sort": bs_kernel.LIB, "sorted_gather": sg_kernel.LIB,
         "sorted_scatter": ss_kernel.LIB, "dma_copy": dc_kernel.LIB,
-        "cache_lookup": cl_kernel.LIB}
+        "cache_lookup": cl_kernel.LIB, "flash_attention": fa_kernel.LIB}
 REPLACES = {"bitonic_sort": "src/repro/kernels/bitonic_sort/kernel.py:85",
             "sorted_gather": "src/repro/kernels/sorted_gather/kernel.py:34",
             "sorted_scatter": "src/repro/kernels/sorted_scatter/kernel.py:38",
             "dma_copy": "src/repro/kernels/dma_copy/kernel.py:69",
-            "cache_lookup": "src/repro/kernels/cache_lookup/kernel.py:63"}
+            "cache_lookup": "src/repro/kernels/cache_lookup/kernel.py:63",
+            "flash_attention": "src/repro/kernels/flash_attention/kernel.py:92"}
 # The main path that drives each kernel (phase 4); its launches are the
 # ones reported.
 PATH_OF = {"bitonic_sort": "scheduler", "sorted_gather": "scheduler",
            "sorted_scatter": "scheduler", "dma_copy": "bulk",
-           "cache_lookup": "cache"}
+           "cache_lookup": "cache", "flash_attention": "serve"}
 SEED = 0
 VOCAB, D_MODEL = 64000, 7168     # yi-34b (src/repro/configs/yi_34b.py), bf16
 BATCH, SEQ = 8, 4096             # one prefill batch of token ids
@@ -109,6 +130,34 @@ CACHE_CFG = CacheConfig(line_width_bits=4096, num_lines=32768,
                         associativity=16)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 NONTENSOR_OPS_PER_S = 67e12      # H100 SXM float32 rate outside tensor cores
+TENSOR_BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+# The serve path: the reference CLI's request mix (src/repro/launch/serve.py
+# main()) at 1024-token prompts and 16 new tokens.
+SERVE_ARCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = "yi-34b", 12, 1024, 16
+# Prefill attention at the serve path: B x S tokens, 56 query heads over 8
+# KV heads, head_dim 128, bf16, causal.
+ATTN_SHAPE = (8, SERVE_PROMPT, 56, 8, 128)
+# B6 against its plain version: name, (B, S, H, KV, hd), dtype, causal,
+# window.
+ATTN_CASES = [
+    ("serve prefill", ATTN_SHAPE, torch.bfloat16, True, None),
+    ("h2o-danube window 4096 at S 8192", (1, 8192, 32, 8, 80),
+     torch.bfloat16, True, 4096),
+    ("window 20 < one tile", (2, 300, 8, 2, 64), torch.bfloat16, True, 20),
+    ("hubert bidirectional hd 80", (2, 512, 16, 16, 80), torch.bfloat16,
+     False, None),
+    ("granite MQA group 48, ragged S 1000", (1, 1000, 48, 1, 128),
+     torch.bfloat16, True, None),
+    ("float32 ragged S 1000, group 7", (2, 1000, 14, 2, 80), torch.float32,
+     True, None),
+    ("float32 S 1", (3, 1, 56, 8, 128), torch.float32, True, None),
+    ("float32 bidirectional window 40", (1, 520, 4, 2, 64), torch.float32,
+     False, 40),
+    ("f16 window 3", (1, 200, 4, 2, 128), torch.float16, True, 3),
+]
+# Relative bound of the serve path's self-consistency (max |diff| over the
+# largest reference logit magnitude).
+SERVE_REL_BOUND = 2e-2
 WARMUP, REPS = 3, 20
 
 
@@ -141,6 +190,21 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> float:
     _, exp = torch.frexp(torch.maximum(a.abs(), b.abs()))
     ulp = torch.ldexp(torch.ones_like(a), (exp - bits).clamp(min=floor))
     return float(((a - b).abs() / ulp).max())
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Run a plain version's float sums in one order. B3's plain ``add``
+    folds each run with ``index_add_``, which on CUDA adds with atomics in
+    an order that changes from run to run; the kernel sums each run in
+    arrival order, the same on every run. The checks hold the two within
+    float32 reassociation, so the plain side is computed with
+    deterministic algorithms (its duplicates summed in index order)."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def check_mixed_add(got, want, got32, want32) -> dict:
@@ -357,7 +421,8 @@ def check_kernels(dev, gen):
         if not dtype.is_floating_point:
             continue
         got = ss_kernel.scatter_rows(table, sidx, vals, mode="add")
-        want = ss_kernel.scatter_rows_plain(table, sidx, vals, mode="add")
+        with deterministic():
+            want = ss_kernel.scatter_rows_plain(table, sidx, vals, mode="add")
         err = float((got.double() - want.double()).abs().max())
         if dtype in (torch.bfloat16, torch.float16):
             assert ulps(got, want) <= 1.0, f"scatter add {dtype} > 1 ulp"
@@ -384,15 +449,18 @@ def check_kernels(dev, gen):
             vals = ints(-100, 100, (n, d)).to(vdtype)
         sidx = torch.sort(ints(0, hi, (n,))).values
         got = ss_kernel.scatter_rows(table, sidx, vals, mode="add")
-        want = ss_kernel.scatter_rows_plain(table, sidx, vals, mode="add")
+        with deterministic():
+            want = ss_kernel.scatter_rows_plain(table, sidx, vals, mode="add")
         if tdtype == torch.int32:
             assert torch.equal(got, want), f"scatter add {vdtype} -> int32"
         else:
             t32 = table.float()
+            with deterministic():
+                want32 = ss_kernel.scatter_rows_plain(t32, sidx, vals,
+                                                      mode="add")
             mixed[f"{vdtype} -> {tdtype} {rows}x{d} n={n}"] = check_mixed_add(
-                got, want,
-                ss_kernel.scatter_rows(t32, sidx, vals, mode="add"),
-                ss_kernel.scatter_rows_plain(t32, sidx, vals, mode="add"))
+                got, want, ss_kernel.scatter_rows(t32, sidx, vals, mode="add"),
+                want32)
         errs["sorted_scatter"] = max(errs["sorted_scatter"], float(
             (got.double() - want.double()).abs().max()))
     check_dma(dev, gen)
@@ -442,15 +510,18 @@ def run_slice(dev, gen) -> dict:
     plain = MemoryController(PAPER_EVAL_CONFIG, use_kernels=False, device=dev)
     assert torch.equal(t_set, plain.scatter(table, idx, vals)), \
         "scatter set != plain path"
-    add_ref = plain.scatter(table, idx, grads, mode="add")
+    with deterministic():
+        add_ref = plain.scatter(table, idx, grads, mode="add")
     add_ulps = ulps(t_add, add_ref)
     assert add_ulps <= 1.0, f"scatter add off by {add_ulps} bf16 ulp"
     assert torch.equal(t_cached, t_add), "cached_scatter != scatter"
     table32 = table.float()
-    add32 = check_mixed_add(
-        t_add32, plain.scatter(table, idx, grads32, mode="add"),
-        mc.scatter(table32, idx, grads32, mode="add"),
-        plain.scatter(table32, idx, grads32, mode="add"))
+    with deterministic():
+        want = plain.scatter(table, idx, grads32, mode="add")
+        want32 = plain.scatter(table32, idx, grads32, mode="add")
+    add32 = check_mixed_add(t_add32, want,
+                            mc.scatter(table32, idx, grads32, mode="add"),
+                            want32)
     del table32
     assert torch.equal(hot2.hot_data, t_add[hot.hot_ids.long()]), \
         "cached_scatter did not re-pin"
@@ -574,6 +645,185 @@ def run_cache(dev, table) -> dict:
     return dict(lines_tab=lines_tab, ids=ids, state=state, launches=launches,
                 seconds=seconds, hit_rate=rate,
                 max_beats_per_set=int(per_set.max()))
+
+
+def attention_pairs(S: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask leaves live in one (batch, head): the
+    work the attention function needs on these inputs."""
+    q = np.arange(S)
+    hi = q + 1 if causal else np.full(S, S)
+    lo = np.zeros(S, np.int64) if window is None else np.maximum(
+        0, q - window + 1)
+    return int((hi - lo).sum())
+
+
+def attention_inputs(gen, dev, shape, dtype):
+    B, S, H, KV, hd = shape
+    return [torch.randn(s, generator=gen, device=dev).to(dtype)
+            for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+def check_attention(dev, gen) -> dict:
+    """B6 against its plain version on the card. float32 inputs: within
+    the reference's rtol = atol = 3e-5. bf16 and f16 inputs: the kernel
+    computes in float32 and rounds once, so its result must be bit-equal
+    to its own float32 result on the same inputs converted (exact), and
+    that within 3e-5 of the plain version's float32 result; the raw
+    disagreement with the plain low-precision result is reported in ulps
+    (one ulp where the error is largest; many ulps of a result that
+    cancels to near zero, where float32 summation order alone decides the
+    last bits)."""
+    out = {}
+    for name, shape, dtype, causal, window in ATTN_CASES:
+        q, k, v = attention_inputs(gen, dev, shape, dtype)
+        kw = dict(causal=causal, window=window)
+        got = fa_kernel.flash_attention_fwd(q, k, v, **kw)
+        want = fa_kernel.flash_attention_plain(q, k, v, **kw)
+        assert got.shape == want.shape and got.dtype == dtype, name
+        assert bool(torch.isfinite(got).all()), f"attention {name}: non-finite"
+        row = dict(max_abs_err=float((got.double() - want.double()).abs()
+                                     .max()))
+        if dtype == torch.float32:
+            assert torch.allclose(got, want, rtol=3e-5, atol=3e-5), \
+                f"attention {name}: beyond 3e-5"
+        else:
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            got32 = fa_kernel.flash_attention_fwd(q32, k32, v32, **kw)
+            want32 = fa_kernel.flash_attention_plain(q32, k32, v32, **kw)
+            assert same_bits(got, got32.to(dtype)), \
+                f"attention {name}: not its float32 result rounded once"
+            assert torch.allclose(got32, want32, rtol=3e-5, atol=3e-5), \
+                f"attention {name}: float32 results beyond 3e-5"
+            diff = (got.double() - want.double()).abs().reshape(-1)
+            at = int(diff.argmax())
+            ulps_at = ulps(got.reshape(-1)[at:at + 1],
+                           want.reshape(-1)[at:at + 1])
+            assert ulps_at <= 1.0, f"attention {name}: {ulps_at} ulps"
+            row.update(plain_there=float(want.reshape(-1)[at]),
+                       ulps_there=ulps_at, max_ulps=ulps(got, want),
+                       f32_max_abs_err=float((got32.double() - want32.double())
+                                             .abs().max()))
+        out[name] = row
+        del q, k, v, got, want
+    torch.cuda.synchronize()
+    return out
+
+
+def timings_attention(dev, gen) -> dict:
+    """Phase 5, B6 at the serve path's prefill shape: the kernel, its plain
+    version and ``scaled_dot_product_attention`` (in its (B, H, S, hd)
+    layout), beside the bound: the two products' FLOPs over the bf16
+    tensor-core rate, or q, k, v and o over the memory rate."""
+    B, S, H, KV, hd = ATTN_SHAPE
+    q, k, v = attention_inputs(gen, dev, ATTN_SHAPE, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    flops = 4 * B * H * hd * attention_pairs(S, True, None)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops, t_bytes = flops / TENSOR_BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    row = dict(
+        ms=time_ms(lambda: fa_kernel.flash_attention_fwd(q, k, v)),
+        plain_ms=time_ms(lambda: fa_kernel.flash_attention_plain(q, k, v)),
+        library_ms=time_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               qt, kt, vt, is_causal=True, enable_gqa=True)),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        flops=flops, bytes=nbytes)
+    return {f"{B}x{S} tokens, {H}/{KV} heads, hd {hd}, bf16, causal": row}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check_serve(server, batch) -> dict:
+    """The serve path held to itself: the same params with kernels off
+    (last-token prefill logits within SERVE_REL_BOUND, greedy tokens of
+    the prefill and of the first decode step equal wherever the plain
+    path's top two logits are further apart than that bound), and that
+    decode step's logits to the cache-free forward of the same prefix."""
+    lm, params = server.lm, server.params
+    prompts = torch.from_numpy(np.stack([r.prompt for r in batch])).to(
+        server.device)
+    max_len = prompts.shape[1] + SERVE_NEW + 8
+    plain = dataclasses.replace(lm, cfg=dataclasses.replace(
+        lm.cfg, use_kernels=False))
+    res, tok = {}, None
+    for name, m in (("plain", plain), ("kernels", lm)):
+        logits, cache, cur = m.prefill(params, {"tokens": prompts}, max_len)
+        if tok is None:
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        step, cache = m.decode_step(params, tok, cache, cur)
+        res[name] = (logits.float(), step.float())
+        del cache
+        torch.cuda.empty_cache()
+    out = dict(prefill_rel_err=rel_err(res["kernels"][0], res["plain"][0]))
+    assert out["prefill_rel_err"] <= SERVE_REL_BOUND, out
+    for i, what in enumerate(("prefill", "decode")):
+        want, got = res["plain"][i], res["kernels"][i]
+        top2 = torch.topk(want, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > SERVE_REL_BOUND * float(
+            want.abs().max())
+        same = torch.argmax(got, -1) == torch.argmax(want, -1)
+        assert bool(same[sure].all()), f"greedy {what} tokens differ"
+        out[f"{what}_greedy_checked"] = int(sure.sum())
+        out[f"{what}_greedy_equal"] = int(same.sum())
+    full = lm.forward(params, {"tokens": torch.cat(
+        [prompts, tok[:, None]], dim=1)})[0][:, -1, :lm.cfg.vocab_size]
+    out["decode_vs_forward_rel_err"] = rel_err(res["kernels"][1], full)
+    assert out["decode_vs_forward_rel_err"] <= SERVE_REL_BOUND, out
+    assert bool(torch.isfinite(full).all()), "forward: non-finite logits"
+    return out
+
+
+def run_serve(dev) -> dict:
+    """Phase 4, serve path: build ``Server("yi-34b")`` on the card and
+    serve the request mix, counters zeroed just before ``serve``."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    server = Server(SERVE_ARCH, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = server.cfg
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32),
+                max_new_tokens=SERVE_NEW, arrival_cycle=i * 3)
+            for i in range(SERVE_REQUESTS)]
+
+    zero_launches()
+    stats = server.serve(reqs)
+    torch.cuda.synchronize()
+    launches = read_launches("serve")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    assert launches["flash_attention"] == cfg.num_layers * stats.batches, \
+        f"flash attention ran {launches['flash_attention']} times"
+    assert launches["bitonic_sort"] > 0 and launches["sorted_gather"] > 0, \
+        "the embedding lookups did not go through the scheduler's kernels"
+    assert stats.batches == 2 and stats.requests == SERVE_REQUESTS
+    for r in reqs:
+        assert len(r.output) == SERVE_NEW and all(
+            0 <= t < cfg.vocab_size for t in r.output), f"request {r.rid}"
+    generated = sum(len(r.output) for r in reqs)
+    first = server.admit(reqs)[0]
+    consistency = check_serve(server, first)
+    return dict(
+        arch=cfg.name, layers=cfg.num_layers, params=cfg.param_count(),
+        weight_gb=sum(t.numel() * t.element_size() for t in
+                      leaves(server.params)) / 1e9,
+        init_s=init_s, batches=stats.batches,
+        batch_sizes=[len(b) for b in server.admit(reqs)],
+        prefill_tokens=stats.prefill_tokens, generated_tokens=generated,
+        decode_steps=stats.decode_steps, wall_s=stats.wall_s,
+        prefill_s=stats.prefill_s,
+        prefill_tokens_per_s=stats.prefill_tokens / stats.prefill_s,
+        decode_s_per_step=stats.decode_s / stats.decode_steps,
+        tokens_per_s=(stats.prefill_tokens + generated) / stats.wall_s,
+        launches=launches, peak_mem_gb=peak,
+        sample_output=reqs[0].output, **consistency)
 
 
 def timings(dev, s) -> dict:
@@ -769,7 +1019,10 @@ def run(dev) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs, mixed = check_kernels(dev, gen)
-    say(phase="kernels_vs_plain", max_abs_err=errs, mixed_add=mixed)
+    attn = check_attention(dev, gen)
+    errs["flash_attention"] = max(r["max_abs_err"] for r in attn.values())
+    say(phase="kernels_vs_plain", max_abs_err=errs, mixed_add=mixed,
+        flash_attention=attn)
 
     s = run_slice(dev, gen)
     say(phase="slice", path="scheduler", seconds=s["slice_s"],
@@ -788,36 +1041,54 @@ def run(dev) -> None:
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     launches = {"scheduler": s["launches"], "bulk": b["launches"],
                 "cache": c["launches"]}
-    launches = {name: launches[path][name] for name, path in PATH_OF.items()}
 
     t = timings(dev, s)
     t["dma_copy"] = timings_bulk(dev, b)
     t["cache_lookup"] = timings_cache(dev, c)
+    t["flash_attention"] = timings_attention(dev, gen)
     for name, shapes in t.items():
+        if name == "flash_attention":
+            continue                     # its launches come from serve
         for shape, row in shapes.items():
             say(phase="timing", kernel=name, shape=shape,
                 kernel_ms=row["ms"],
                 **{k: v for k, v in row.items() if k != "ms"},
-                launches=launches[name])
+                launches=launches[PATH_OF[name]][name])
 
+    # The serve path holds 69 GB of weights: free every earlier phase's
+    # tensors first.
     main_row = {"bitonic_sort": t["bitonic_sort"][f"1x{BATCH * SEQ}"],
                 "sorted_gather": t["sorted_gather"][f"{BATCH * SEQ}x{D_MODEL}"],
                 "sorted_scatter": t["sorted_scatter"]["add"],
                 "dma_copy": next(iter(t["dma_copy"].values())),
-                "cache_lookup": next(iter(t["cache_lookup"].values()))}
+                "cache_lookup": next(iter(t["cache_lookup"].values())),
+                "flash_attention": next(iter(
+                    t["flash_attention"].values()))}
+    del s, b, c
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(phase="freed", allocated_gb=torch.cuda.memory_allocated(dev) / 1e9)
+    v = run_serve(dev)
+    say(phase="slice", path="serve", **v)
+    launches["serve"] = v["launches"]
+    for shape, row in t["flash_attention"].items():
+        say(phase="timing", kernel="flash_attention", shape=shape,
+            kernel_ms=row["ms"], **{k: x for k, x in row.items() if k != "ms"},
+            launches=launches["serve"]["flash_attention"])
+
     kernels = []
     for name in LIBS:
         row = main_row[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": launches[PATH_OF[name]][name],
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "variants": t[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
-
 
 if __name__ == "__main__":
     sys.exit(main())

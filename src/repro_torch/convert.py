@@ -2,9 +2,10 @@
 
 Arrays arrive as numpy arrays (``np.asarray`` of a JAX array): tables,
 index streams, a ``HotRowCache``'s ``hot_ids`` / ``hot_data``, a
-``CacheState``'s six arrays. Configs
-arrive as the nested dict of ``dataclasses.asdict`` of a reference
-``MemoryControllerConfig``. Nothing here imports JAX or ``repro``.
+``CacheState``'s six arrays, an LM's parameter tree (``jax.tree.map(
+np.asarray, params)``). Configs arrive as the nested dict of
+``dataclasses.asdict`` of a reference ``MemoryControllerConfig`` or
+``ArchConfig``. Nothing here imports JAX or ``repro``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs import base as arch
 from repro_torch.core import config as cfg
 from repro_torch.core.cache_engine import CacheState
 from repro_torch.core.controller import HotRowCache
@@ -74,3 +76,25 @@ def config_from_dict(d: dict) -> cfg.MemoryControllerConfig:
                                     for w in f.get("outage_windows", ()))
         kw["faults"] = cfg.FaultConfig(**f)
     return cfg.MemoryControllerConfig(**kw)
+
+
+def lm_params(tree, device: str | torch.device):
+    """A reference LM's parameter tree (nested dicts, numpy leaves) as the
+    port's nested dict of tensors on ``device``, leaf for leaf; bf16
+    leaves keep their bits."""
+    if isinstance(tree, dict):
+        return {k: lm_params(v, device) for k, v in tree.items()}
+    return to_tensor(tree, device)
+
+
+def arch_config_from_dict(d: dict) -> arch.ArchConfig:
+    """``dataclasses.asdict`` of a reference ``ArchConfig`` as the port's.
+    The reference's ``use_pallas`` is dropped: no reference model reads
+    it, and the port's ``use_kernels`` keeps its default (on)."""
+    kw = {k: v for k, v in d.items() if k != "use_pallas"}
+    if kw.get("moe") is not None:
+        kw["moe"] = arch.MoESpec(**kw["moe"])
+    if kw.get("ssm") is not None:
+        kw["ssm"] = arch.SSMSpec(**kw["ssm"])
+    kw["mc"] = config_from_dict(kw["mc"])
+    return arch.ArchConfig(**kw)

@@ -12,7 +12,8 @@ use by ``_build``:
 * ``sorted_scatter`` — the run-coalescing row write behind the write path
 * ``dma_copy``       — the DMA engine's staged bulk copy (paper §IV-B)
 * ``cache_lookup``   — the cache engine's tag/LRU pipeline (paper §IV-A)
+* ``flash_attention`` — online-softmax GQA attention, the model's prefill
+  (the DMA engine's staging applied to K/V streaming)
 
-Counterpart of ``repro.kernels`` (Pallas, TPU); its ``flash_attention``
-kernel is not ported yet.
+Counterpart of ``repro.kernels`` (Pallas, TPU).
 """

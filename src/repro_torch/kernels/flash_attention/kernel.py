@@ -1,0 +1,140 @@
+"""Flash attention — the DMA engine applied to KV streaming (B6).
+
+``flash_attention_fwd(q, k, v, causal=..., window=...)`` is GQA attention
+in the model layout ``(B, S, H, hd)``: float32 scores, a running max and
+sum, float32 output accumulators, a causal, sliding-window or bidirectional
+mask, and the output in q's dtype. On a CUDA tensor it launches the kernel
+of ``csrc/flash_attention.cu`` (one block per (batch * head, 64 query
+rows), the key tiles a loop inside the block, the ragged tail of S masked);
+on a CPU tensor it runs ``flash_attention_plain``, the blocked
+online-softmax loop of the reference's XLA path
+(``repro.models.layers.flash_attention``), whose result does not depend on
+its block sizes beyond float32 summation order. Counterpart of
+``repro.kernels.flash_attention.kernel``; unlike that Pallas op, any S >= 1
+is taken.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._build import F32, I32, I64, P, CudaLibrary
+
+LIB = CudaLibrary("flash_attention", {
+    "flash_attention_fwd": (P, P, P, P, I32, I32, I32, I32, I32, I32, I32,
+                            F32, I32, I64, I64, I64, I64, I64, I64, I64, I64,
+                            I64, P)})
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MAX_HEAD_DIM = 128
+Q_TILE = 64                       # query rows of one block of the kernel
+MAX_Q_TILES = 65535               # the grid's y extent
+# The finite mask of both reference paths: -inf - (-inf) would make the
+# running-max correction NaN.
+NEG = -0.7 * torch.finfo(torch.float32).max
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
+                          q_block: int = 512, kv_block: int = 1024):
+    """Blocked online-softmax attention in torch: q blocks outer, kv blocks
+    inner, float32 throughout, so the score matrix never exists beyond one
+    (q_block, kv_block) tile per (batch, head). KV blocks that the mask
+    leaves no live key in are skipped (their only effect would be
+    probabilities that a later live block's correction factor zeroes)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    q_block, kv_block = min(q_block, S), min(kv_block, S)
+    qg = q.reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4)   # (B,KV,G,S,hd)
+    kg = k.permute(0, 2, 1, 3)                                # (B,KV,S,hd)
+    vg = v.permute(0, 2, 1, 3)
+    out = torch.empty((B, KV, G, S, hd), dtype=q.dtype, device=q.device)
+    for q0 in range(0, S, q_block):
+        q1 = min(q0 + q_block, S)
+        qb = qg[:, :, :, q0:q1].float()
+        q_pos = torch.arange(q0, q1, device=q.device)[:, None]
+        o = torch.zeros((B, KV, G, q1 - q0, hd), dtype=torch.float32,
+                        device=q.device)
+        m = torch.full((B, KV, G, q1 - q0), float("-inf"),
+                       dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        k_first = 0 if window is None else max(0, q0 - window + 1)
+        k_end = min(S, q1) if causal else S
+        for k0 in range(k_first // kv_block * kv_block, k_end, kv_block):
+            k1 = min(k0 + kv_block, S)
+            kb, vb = kg[:, :, k0:k1].float(), vg[:, :, k0:k1].float()
+            s = torch.einsum("bkgqd,bkcd->bkgqc", qb, kb) * scale
+            k_pos = torch.arange(k0, k1, device=q.device)[None, :]
+            mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= k_pos <= q_pos
+            if window is not None:
+                mask &= k_pos > q_pos - window
+            s = torch.where(mask, s, NEG)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            o = o * corr[..., None] + torch.einsum("bkgqc,bkcd->bkgqd", p, vb)
+            m = m_new
+        out[:, :, :, q0:q1] = (o / l.clamp_min(1e-37)[..., None]).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+
+
+def _check(q, k, v, window) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: need (B,S,H,hd) and two "
+                         f"(B,S,KV,hd)")
+    B, S, H, hd = q.shape
+    if k.shape[:2] != (B, S) or k.shape[3] != hd or H % k.shape[2]:
+        raise ValueError(f"k and v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (H a multiple of KV)")
+    if hd % 16 or not 16 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd}: the kernel takes a multiple of 16 "
+                         f"in [16, {MAX_HEAD_DIM}]")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v of {q.dtype}, {k.dtype}, {v.dtype}: need "
+                         f"one of {sorted(map(str, DTYPES))}")
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} must be None or >= 1")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {q.device}")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window=None,
+                        q_block: int = 512,
+                        kv_block: int = 1024) -> torch.Tensor:
+    """Attention of q ``(B,S,H,hd)`` over k, v ``(B,S,KV,hd)``; returns a new
+    contiguous ``(B,S,H,hd)`` tensor in q's dtype.
+
+    The three share one float dtype (float32, bf16 or f16) and one device;
+    H is a multiple of KV; hd a multiple of 16 up to 128; ``window`` None
+    or >= 1. Any layout whose head_dim axis has stride 1 runs without a
+    copy. ``q_block`` and ``kv_block`` are the plain version's tiles (CPU
+    tensors only); the kernel's are fixed. Anything else raises
+    ``ValueError``.
+    """
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_block=q_block, kv_block=kv_block)
+    B, S, H, hd = q.shape
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("the head_dim axis of q, k and v must have stride 1")
+    if B * H >= 1 << 31 or -(-S // Q_TILE) > MAX_Q_TILES:
+        raise ValueError(f"B*H={B * H}, S={S} exceed the kernel's grid")
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    LIB.launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], hd,
+               int(causal), 0 if window is None else int(window), hd ** -0.5,
+               DTYPES[q.dtype], *q.stride()[:3], *k.stride()[:3],
+               *v.stride()[:3],
+               torch.cuda.current_stream(q.device).cuda_stream)
+    return out

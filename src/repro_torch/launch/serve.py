@@ -1,0 +1,236 @@
+"""Serving driver: the memory-controller scheduler applied to requests.
+
+Counterpart of ``repro.launch.serve``. The paper's scheduler batches
+memory requests under (batch_size, timeout) bounds before servicing them;
+this driver applies the identical policy to *inference requests*: arrivals
+accumulate into a prefill batch until the batch is full or the timeout
+expires (``core.scheduler.form_batches``), then the batch is prefilled and
+decoded in lockstep (greedy). Prefill attention is kernel B6 on the GPU,
+and the embedding lookups of prefill and decode go through the
+scheduler's sort (B1) and row gather (B2).
+
+The reference also replays each served batch's KV access stream
+(``kv_trace``) through ``MemoryController.simulate`` to report modeled
+memory latency per tenant. The simulator is not ported yet (ROADMAP A5),
+so ``serve`` leaves the ``modeled_*`` fields of ``ServeStats`` at None;
+``kv_trace`` itself is here and equals the reference's.
+
+Demo: ``python -m repro_torch.launch.serve --arch yi-34b --smoke
+--device cpu`` (the default device is the GPU).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.core.config import MemoryControllerConfig, SchedulerConfig
+from repro_torch.core.scheduler import form_batches
+from repro_torch.models.lm import build_lm
+
+#: KV page granularity of the modeled access stream (bytes per token row)
+KV_PAGE_BYTES = 256
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray          # (S,) int32
+    max_new_tokens: int = 16
+    arrival_cycle: int = 0
+    tenant: int = 0             # controller port this request issues from
+    output: Optional[List[int]] = None
+
+
+@dataclasses.dataclass
+class ServeStats:
+    batches: int = 0
+    requests: int = 0
+    decode_steps: int = 0
+    prefill_tokens: int = 0
+    wall_s: float = 0.0
+    # Host-clock seconds in prefill (until its first tokens reach the host)
+    # and in the decode steps after it; every step ends in a host read of
+    # its tokens, so both include the device's work.
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    # Modeled memory-system latency (FPGA cycles) of the KV access stream:
+    # None until MemoryController.simulate is ported (ROADMAP A5).
+    modeled_p50_cycles: Optional[float] = None
+    modeled_p95_cycles: Optional[float] = None
+    modeled_p99_cycles: Optional[float] = None
+    modeled_makespan_cycles: Optional[float] = None
+    modeled_per_tenant: Dict[int, dict] = dataclasses.field(
+        default_factory=dict)
+    modeled_slo_attainment: Dict[int, dict] = dataclasses.field(
+        default_factory=dict)
+
+
+class Server:
+    """Batched prefill + lockstep decode with scheduler-based admission.
+
+    Params are drawn on ``device`` from ``torch.Generator(device)`` seeded
+    0. ``mem``, ``arb_policy``, ``arb_weights`` and ``slo_cycles`` are the
+    reference's settings of the modeled-memory replay, kept for when the
+    simulator is ported; ``decode_interval_cycles`` spaces ``kv_trace``.
+    """
+
+    def __init__(self, arch: str, *, smoke: bool = False, mesh=None,
+                 sched: SchedulerConfig | None = None,
+                 mem: MemoryControllerConfig | None = None,
+                 arb_policy: str = "round_robin",
+                 arb_weights=None,
+                 decode_interval_cycles: int = 64,
+                 slo_cycles: float | None = None,
+                 device: str | torch.device = "cuda"):
+        self.cfg = get_arch(arch, smoke=smoke)
+        if self.cfg.family == "encoder":
+            raise ValueError("encoder-only architectures do not decode")
+        self.device = torch.device(device)
+        self.lm = build_lm(self.cfg, mesh, device=self.device)
+        self.sched = sched or SchedulerConfig(batch_size=8, timeout_cycles=32)
+        self.mem = mem or MemoryControllerConfig()
+        self.arb_policy = arb_policy
+        self.arb_weights = arb_weights
+        self.decode_interval_cycles = int(decode_interval_cycles)
+        self.slo_cycles = None if slo_cycles is None else float(slo_cycles)
+        self.params = self.lm.init(
+            torch.Generator(self.device).manual_seed(0))
+
+    def admit(self, requests: List[Request]) -> List[List[Request]]:
+        """Scheduler-policy batch formation over the arrival stream."""
+        if not requests:
+            return []
+        batches = form_batches(
+            addrs=[r.rid for r in requests],
+            rw=[0] * len(requests),
+            arrival_cycle=[r.arrival_cycle for r in requests],
+            config=self.sched)
+        by_id = {r.rid: r for r in requests}
+        return [[by_id[int(a)] for a in b.addr] for b in batches]
+
+    def run_batch(self, batch: List[Request], stats: ServeStats) -> None:
+        S = max(len(r.prompt) for r in batch)
+        prompts = np.stack([np.pad(r.prompt, (S - len(r.prompt), 0))
+                            for r in batch])     # left-pad to align ends
+        max_new = max(r.max_new_tokens for r in batch)
+        max_len = S + max_new + 8
+        t0 = time.perf_counter()
+        logits, cache, cur = self.lm.prefill(
+            self.params, {"tokens": torch.from_numpy(prompts).to(
+                self.device)}, max_len)
+        stats.prefill_tokens += int(prompts.size)
+        outs = [[] for _ in batch]
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        for step in range(max_new):
+            host = tok.tolist()          # the step's one host sync
+            if step == 0:
+                t1 = time.perf_counter()
+                stats.prefill_s += t1 - t0
+            for i, r in enumerate(batch):
+                if step < r.max_new_tokens:
+                    outs[i].append(host[i])
+            logits, cache = self.lm.decode_step(self.params, tok, cache, cur)
+            cur += 1
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            stats.decode_steps += 1
+        if max_new:
+            tok.tolist()
+            stats.decode_s += time.perf_counter() - t1
+        for r, o in zip(batch, outs):
+            r.output = o
+        stats.batches += 1
+        stats.requests += len(batch)
+
+    def kv_trace(self, batches: List[List[Request]]):
+        """Modeled KV-cache access stream of the batched-decode plan.
+
+        Per batch: prefill appends every prompt token's KV page at the
+        admission instant (the batch's last arrival); each lockstep
+        decode step ``s`` then appends the new token's page and reads
+        the latest context page plus one strided cold page,
+        ``decode_interval_cycles`` apart. Requests keep their tenant as
+        the controller port. Returns ``(pe_id, rows, rw, arrival_cycle)``
+        in arrival order.
+        """
+        pe: List[int] = []
+        rows: List[int] = []
+        rw: List[int] = []
+        arr: List[float] = []
+
+        def emit(r, row, is_write, t):
+            pe.append(r.tenant)
+            rows.append(row)
+            rw.append(is_write)
+            arr.append(t)
+
+        for batch in batches:
+            base = float(max(r.arrival_cycle for r in batch))
+            for r in batch:
+                s0 = len(r.prompt)
+                kv0 = r.rid * (s0 + r.max_new_tokens + 8)
+                for p in range(s0):         # prefill: write prompt KV
+                    emit(r, kv0 + p, 1, base)
+                for s in range(r.max_new_tokens):
+                    t = base + (s + 1) * self.decode_interval_cycles
+                    emit(r, kv0 + s0 + s, 1, t)        # append new page
+                    emit(r, kv0 + s0 + s - 1, 0, t)    # latest context
+                    emit(r, kv0 + (s * 7) % max(1, s0), 0, t)  # cold page
+        order = np.argsort(np.asarray(arr, np.float64), kind="stable")
+        return (np.asarray(pe, np.int64)[order],
+                np.asarray(rows, np.int64)[order],
+                np.asarray(rw, np.int32)[order],
+                np.asarray(arr, np.float64)[order])
+
+    def serve(self, requests: List[Request]) -> ServeStats:
+        stats = ServeStats()
+        t0 = time.perf_counter()
+        for batch in self.admit(requests):
+            self.run_batch(batch, stats)
+        stats.wall_s = time.perf_counter() - t0
+        return stats
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="yi-34b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--slo-cycles", type=float, default=None,
+                    help="modeled sojourn SLO (kept for the simulator, "
+                         "ROADMAP A5)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default: the GPU)")
+    args = ap.parse_args()
+
+    server = Server(args.arch, smoke=args.smoke,
+                    slo_cycles=args.slo_cycles, device=args.device)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i,
+                    prompt=rng.integers(
+                        0, server.cfg.vocab_size, args.prompt_len
+                    ).astype(np.int32),
+                    max_new_tokens=args.new_tokens,
+                    arrival_cycle=i * 3)
+            for i in range(args.requests)]
+    stats = server.serve(reqs)
+    print(f"[serve] {stats.requests} requests in {stats.batches} batches, "
+          f"{stats.decode_steps} decode steps, "
+          f"{stats.prefill_tokens} prefill tokens, {stats.wall_s:.1f}s "
+          f"on {server.device} (prefill {stats.prefill_s:.3f}s, decode "
+          f"{stats.decode_s:.3f}s)")
+    print("[serve] modeled KV latency: not modeled (MemoryController."
+          "simulate is not ported yet)")
+    print(f"[serve] sample output: {reqs[0].output}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,8 @@
+"""Model zoo: the LM assembly (dense family so far).
+
+Counterpart of ``repro.models``.
+"""
+
+from repro_torch.models.lm import LM, build_lm
+
+__all__ = ["LM", "build_lm"]

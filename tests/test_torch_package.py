@@ -22,11 +22,12 @@ from repro_torch.kernels.bitonic_sort import kernel as bs_kernel
 from repro_torch.kernels.cache_lookup import kernel as cl_kernel
 from repro_torch.kernels.cache_lookup import ops as cl_ops
 from repro_torch.kernels.dma_copy import kernel as dc_kernel
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.sorted_gather import kernel as sg_kernel
 from repro_torch.kernels.sorted_scatter import kernel as ss_kernel
 
 LIBS = (bs_kernel.LIB, sg_kernel.LIB, ss_kernel.LIB, dc_kernel.LIB,
-        cl_kernel.LIB)
+        cl_kernel.LIB, fa_kernel.LIB)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -54,7 +55,10 @@ def test_no_module_imports_jax_or_the_reference_package():
     """Import every module of the port (and chip_smoke.py) in a fresh
     interpreter: neither ``jax`` nor any ``repro`` module is loaded."""
     mods = _modules()
-    assert "repro_torch.kernels._build" in mods and len(mods) > 15
+    assert {"repro_torch.kernels._build", "repro_torch.configs.yi_34b",
+            "repro_torch.models.lm", "repro_torch.launch.serve",
+            "repro_torch.kernels.flash_attention.kernel"} <= set(mods)
+    assert len(mods) > 15
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -92,10 +96,12 @@ def test_imports_without_nvcc_or_triton(tmp_path):
         "        if name.split('.')[0] == 'triton':\n"
         "            raise ImportError('no triton')\n"
         "sys.meta_path.insert(0, NoTriton())\n"
-        "import repro_torch, repro_torch.convert\n"
+        "import repro_torch, repro_torch.convert, repro_torch.launch.serve\n"
         "from repro_torch.kernels import _build\n"
         "from repro_torch.kernels.sorted_gather import kernel\n"
-        "assert kernel.LIB._lib is None and kernel.LIB.launches == 0\n"
+        "from repro_torch.kernels.flash_attention import kernel as fa\n"
+        "for lib in (kernel.LIB, fa.LIB):\n"
+        "    assert lib._lib is None and lib.launches == 0\n"
         "try:\n"
         "    _build.nvcc_path()\n"
         "except RuntimeError as e:\n"
@@ -134,7 +140,7 @@ def test_controller_runs_on_the_gpu_unless_asked():
 
 @pytest.mark.parametrize("call", ["sort", "gather", "scatter_set",
                                   "scatter_add", "dma_copy", "cache_probe",
-                                  "cache_service"])
+                                  "cache_service", "flash_attention"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
     """For a tensor on another device than the CPU the wrappers launch the
     kernel or raise; on the ``meta`` device (no data, no kernel) they raise
@@ -149,6 +155,9 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
             bs_kernel.bitonic_sort_batched(i32, i32)
         elif call == "gather":
             sg_kernel.gather_rows(table, sidx)
+        elif call == "flash_attention":
+            q = torch.zeros((1, 8, 4, 16), device=dev)
+            fa_kernel.flash_attention_fwd(q, q[:, :, :2], q[:, :, :2])
         elif call == "dma_copy":
             dc_kernel.staged_copy(table.reshape(-1), vals.new_zeros(32),
                                   chunk_elems=128, channels=4)
@@ -165,12 +174,22 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
     assert [lib.launches for lib in LIBS] == [0] * len(LIBS)
 
 
+def test_model_entry_points_run_on_the_gpu_unless_asked():
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import LM, build_lm
+    from repro_torch.models.params import init_params
+    for fn in (Server, build_lm, init_params):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert LM.__dataclass_fields__["device"].default == "cuda"
+
+
 def test_build_command_targets_hopper():
     cmd = _build.nvcc_command("sorted_gather", pathlib.Path("out.so"))
     assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     for flag in ("-O3", "-shared", "-fPIC"):
         assert flag in cmd
     assert _build.BUILD_DIR == ROOT / "build" / "kernels"
+    assert "flash_attention" in _build.SOURCES
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
 
 
