@@ -18,11 +18,13 @@ Phases (a failing phase raises and the script exits non-zero):
    within float32 reassociation (rtol = atol = 1e-5) for float32 and
    float64 tables and within one bf16 or f16 ulp for those; float32
    values summed into a bf16 or f16 table are held by ``check_mixed_add``;
-   flash attention (B6) by ``check_attention``: float32 within the
-   reference's rtol = atol = 3e-5, bf16 and f16 bit-equal to the kernel's
-   own float32 result rounded once, and that within 3e-5 of the plain
-   float32 result (at the serve path's shape, windows, bidirectional hd
-   80, MQA, ragged S, S = 1).
+   flash attention (B6) by ``check_attention``: float32 inputs (the
+   CUDA-core kernel) within the reference's rtol = atol = 3e-5; bf16 and
+   f16 inputs (the tensor-core kernel) bit-equal to the same kernel's
+   float32 output (``out_dtype=torch.float32``) rounded once, and that
+   within 3e-5 of the plain float32 result (at the serve path's shape,
+   windows, bidirectional hd 80, MQA, ragged S, S = 1). The sort also at
+   N equal to its default chunk, twice it and eight times it, G > 1.
 4. slice — four main paths, each through the entry points a user calls,
    with every launch counter zeroed just before it and read just after;
    each of its kernels must have run:
@@ -48,16 +50,22 @@ Phases (a failing phase raises and the script exits non-zero):
      configuration (60 layers, 68.78 GB of bf16 weights, random from
      seed 0) serving the reference CLI's mix: 12 requests of 1024 uniform
      token ids, 16 new tokens each, arriving every 3 cycles (batches of 8
-     and 4). Flash attention must launch once per layer per batch, and
-     the scheduler's sort and gather from the embedding lookups. Held to
+     and 4). Flash attention must launch once per layer per batch, every
+     time through its tensor-core route, and the scheduler's sort and
+     gather from the embedding lookups. Held to
      itself with kernels off (last-token prefill logits, greedy tokens)
-     and a decode step to the cache-free forward of its prefix. Runs
-     after every earlier phase's tensors are freed.
+     and a decode step to the cache-free forward of its prefix; before
+     those checks, ``serve_drift`` prints where their differences arise,
+     layer by layer. Runs after every earlier phase's tensors are freed.
 5. timing — per kernel at the main paths' shapes: the CUDA-event median
    of the kernel's wrapper, its plain version and one PyTorch library
    call computing the same function (none for the cache probe: no
    PyTorch call runs an LRU), beside the least time the card could take
-   (bytes over 3.35 TB/s, or operations over the peak rate).
+   (bytes over 3.35 TB/s, or operations over the peak rate). For the sort
+   and attention also the kernel's and the library call's device time
+   per call from ``torch.profiler`` (the wrapper's time includes the
+   host's), and the sort's device launches per call, counted in that
+   trace and held to its launch plan, and also at three other chunks.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -66,6 +74,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import contextlib
+import collections
 import dataclasses
 import gc
 import json
@@ -97,7 +106,8 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E40
 from repro_torch.kernels.sorted_gather import kernel as sg_kernel  # noqa: E402
 from repro_torch.kernels.sorted_scatter import kernel as ss_kernel  # noqa: E402
 from repro_torch.launch.serve import Request, Server  # noqa: E402
-from repro_torch.models.params import leaves  # noqa: E402
+from repro_torch.models import blocks, layers  # noqa: E402
+from repro_torch.models.params import leaves, map_tree  # noqa: E402
 
 LIBS = {"bitonic_sort": bs_kernel.LIB, "sorted_gather": sg_kernel.LIB,
         "sorted_scatter": ss_kernel.LIB, "dma_copy": dc_kernel.LIB,
@@ -180,6 +190,34 @@ def time_ms(fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_trace(fn, reps: int = 10, tries: int = 3) -> dict:
+    """What ``torch.profiler`` records on the card over ``reps`` calls,
+    after warm-up, per call: ``ms``, the kernels' summed durations (None
+    where it records no device time), ``launches``, the device events, and
+    ``by_kernel``, those launches by kernel name (its part before any
+    argument list). A trace with no device event at all is taken again,
+    up to ``tries`` times: the profiler has returned an empty trace for
+    calls that did launch (once in about 30 traces on the H100)."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    us = sum(e.device_time_total for e in events)
+    by_kernel = collections.Counter(e.name.split("(")[0] for e in events)
+    return dict(ms=us / reps / 1e3 if us > 0 else None,
+                launches=len(events) / reps,
+                by_kernel={k: n / reps for k, n in by_kernel.items()})
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -360,17 +398,27 @@ def check_kernels(dev, gen):
             np.int32)).to(dev)
 
     n_main = BATCH * SEQ
-    # B1: the network, kernel vs the plain stage loop, then the padded op
-    # vs torch's stable sort (duplicates, real INT32_MAX keys, odd N).
+    # B1: the network, kernel vs the plain stage loop and torch's stable
+    # sort, at the main paths' shapes and at N equal to the default chunk,
+    # twice it and eight times it (G > 1: several launches, local and
+    # global); then the padded op vs torch's stable sort (duplicates, real
+    # INT32_MAX keys, odd N).
+    c = bs_kernel.DEFAULT_CHUNK
     for shape, hi in [((n_main // SCHED_BATCH, SCHED_BATCH), "zipf"),
-                      ((1, n_main), "zipf"), ((3, 1024), 4), ((1, 2), 2)]:
+                      ((BATCH, SERVE_PROMPT), "zipf"), ((1, n_main), "zipf"),
+                      ((3, 1024), 4), ((1, 2), 2), ((2, c), 4),
+                      ((3, 2 * c), 4), ((4, 8 * c), 1000)]:
         keys, vals = ints(0, hi, shape), ints(0, 1 << 30, shape)
+        keys[:, ::7] = i32max
         ids = torch.arange(shape[1], dtype=torch.int32,
                            device=dev).expand(shape).contiguous()
         got = bs_kernel.bitonic_sort_batched(keys, vals)
         want = bs_kernel.sort_network(keys, ids, vals)
         for g, w in zip(got, want):
             assert torch.equal(g, w), f"bitonic_sort {shape} != plain"
+        ref_keys, ref_perm = torch.sort(keys, dim=-1, stable=True)
+        assert torch.equal(got[0], ref_keys) and torch.equal(
+            got[1].long(), ref_perm), f"bitonic_sort {shape} != torch.sort"
     for n in (1000, 32768 - 5, 1):
         keys = ints(0, 8, (n,))
         keys[rng.integers(0, n, max(1, n // 10))] = i32max
@@ -561,7 +609,7 @@ def run_slice(dev, gen) -> dict:
 
 def zero_launches() -> None:
     for lib in LIBS.values():
-        lib.launches = 0
+        lib.reset_launches()
 
 
 def read_launches(path: str) -> dict:
@@ -664,15 +712,16 @@ def attention_inputs(gen, dev, shape, dtype):
 
 
 def check_attention(dev, gen) -> dict:
-    """B6 against its plain version on the card. float32 inputs: within
-    the reference's rtol = atol = 3e-5. bf16 and f16 inputs: the kernel
-    computes in float32 and rounds once, so its result must be bit-equal
-    to its own float32 result on the same inputs converted (exact), and
-    that within 3e-5 of the plain version's float32 result; the raw
-    disagreement with the plain low-precision result is reported in ulps
-    (one ulp where the error is largest; many ulps of a result that
-    cancels to near zero, where float32 summation order alone decides the
-    last bits)."""
+    """B6 against its plain version on the card. float32 inputs (the
+    CUDA-core kernel): within the reference's rtol = atol = 3e-5. bf16 and
+    f16 inputs (the tensor-core kernel): it computes in float32 and rounds
+    once, so its result must be bit-equal to its own float32 output on the
+    same inputs (``out_dtype=torch.float32``) rounded once, and that
+    within 3e-5 of the plain version's result on the inputs converted to
+    float32 (exact); the raw disagreement with the plain low-precision
+    result is reported in ulps (one ulp where the error is largest; many
+    ulps of a result that cancels to near zero, where float32 summation
+    order alone decides the last bits)."""
     out = {}
     for name, shape, dtype, causal, window in ATTN_CASES:
         q, k, v = attention_inputs(gen, dev, shape, dtype)
@@ -687,9 +736,10 @@ def check_attention(dev, gen) -> dict:
             assert torch.allclose(got, want, rtol=3e-5, atol=3e-5), \
                 f"attention {name}: beyond 3e-5"
         else:
-            q32, k32, v32 = q.float(), k.float(), v.float()
-            got32 = fa_kernel.flash_attention_fwd(q32, k32, v32, **kw)
-            want32 = fa_kernel.flash_attention_plain(q32, k32, v32, **kw)
+            got32 = fa_kernel.flash_attention_fwd(
+                q, k, v, out_dtype=torch.float32, **kw)
+            want32 = fa_kernel.flash_attention_plain(q.float(), k.float(),
+                                                     v.float(), **kw)
             assert same_bits(got, got32.to(dtype)), \
                 f"attention {name}: not its float32 result rounded once"
             assert torch.allclose(got32, want32, rtol=3e-5, atol=3e-5), \
@@ -705,6 +755,14 @@ def check_attention(dev, gen) -> dict:
                                              .abs().max()))
         out[name] = row
         del q, k, v, got, want
+    # bf16 rows that do not start 16-byte aligned (views at a 2-byte
+    # offset) are copied for the tensor-core kernel: the same result.
+    q, k, v = attention_inputs(gen, dev, (2, 130, 8, 2, 64), torch.bfloat16)
+    views = [torch.cat([t[..., :1], t], dim=-1)[..., 1:] for t in (q, k, v)]
+    assert not any(fa_kernel._aligned(t) for t in views)
+    assert same_bits(fa_kernel.flash_attention_fwd(*views),
+                     fa_kernel.flash_attention_fwd(q, k, v)), \
+        "attention of misaligned views"
     torch.cuda.synchronize()
     return out
 
@@ -720,12 +778,13 @@ def timings_attention(dev, gen) -> dict:
     flops = 4 * B * H * hd * attention_pairs(S, True, None)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     t_ops, t_bytes = flops / TENSOR_BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    call = lambda: fa_kernel.flash_attention_fwd(q, k, v)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
     row = dict(
-        ms=time_ms(lambda: fa_kernel.flash_attention_fwd(q, k, v)),
+        ms=time_ms(call), device_ms=device_trace(call)["ms"],
         plain_ms=time_ms(lambda: fa_kernel.flash_attention_plain(q, k, v)),
-        library_ms=time_ms(lambda: torch.nn.functional
-                           .scaled_dot_product_attention(
-                               qt, kt, vt, is_causal=True, enable_gqa=True)),
+        library_ms=time_ms(lib), library_device_ms=device_trace(lib)["ms"],
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         flops=flops, bytes=nbytes)
@@ -738,12 +797,88 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def serve_drift(lm, params, prompts, tok, max_len, full, step) -> dict:
+    """Where the serve checks' differences come from, layer by layer, on
+    the prompts and the greedy token. Four walks of the layers: the
+    cache-free forward with kernels off (``plain``), on (``kernels``), and
+    off with the plain attention's key blocks a quarter as long
+    (``reordered``: the same function with its float32 sums in another
+    order, a control), and the decode step after a prefill with kernels
+    on (``decode``, one position). Per layer, max |diff| over max
+    |reference|: ``attn_b6`` B6's attention block against the plain one on
+    the same input (the plain walk's), ``attn_decode`` the decode step's
+    attention block against B6's at the last position on the same input
+    (the kernels walk's), ``resid_kernels`` and ``resid_reordered`` the
+    residual stream after the layer against the plain walk's (all
+    positions; ``resid_kernels_last`` the last one), ``resid_decode`` the
+    decode step's against the kernels walk's last position. ``logits_*``
+    compare the last position's logits the same way, and the two
+    ``*_is_*`` flags say whether the walks reproduce the entry points'
+    bits: ``full``, the last position of ``forward``, and ``step``, the
+    decode step's logits."""
+    cfg = lm.cfg
+    cfgs = {"plain": dataclasses.replace(cfg, use_kernels=False),
+            "kernels": cfg,
+            "reordered": dataclasses.replace(
+                cfg, use_kernels=False, attn_kv_block=cfg.attn_kv_block // 4)}
+    tokens = torch.cat([prompts, tok[:, None]], dim=1)
+    x0, _ = lm._embed_inputs(params, {"tokens": tokens})
+    pos = lm._positions(x0)
+    xs = dict.fromkeys(cfgs, x0)
+    _, cache, cur = lm.prefill(params, {"tokens": prompts}, max_len)
+    kvs = cache["pos0"]["attn"]
+    xd = layers.mc_embed(params["embed"]["table"], tok, cfg.mc,
+                         use_kernels=cfg.use_kernels)
+    out = collections.defaultdict(list)
+    for l in range(cfg.num_layers):
+        bp = map_tree(lambda t: t[l], params["layers"]["pos0"])
+        c = type(kvs)(*(t[l] for t in kvs))
+        attn = {n: blocks.attn_forward(bp["attn"], xs[n], cf, pos)[0]
+                for n, cf in cfgs.items()}
+        b6 = blocks.attn_forward(bp["attn"], xs["plain"], cfg, pos)[0]
+        out["attn_b6"].append(rel_err(b6, attn["plain"]))
+        del b6
+        # The same input's K/V goes into the cache's slot cur first; the
+        # decode walk's own then overwrites it.
+        last = xs["kernels"][:, -1]
+        one = blocks.attn_decode(bp["attn"], last, c, cur, cfg)[0]
+        out["attn_decode"].append(rel_err(one, attn["kernels"][:, -1]))
+        one = blocks.attn_decode(bp["attn"], xd, c, cur, cfg)[0]
+        for n in cfgs:
+            x = xs[n] + attn[n]
+            xs[n] = x + blocks.mlp_forward(bp["mlp"], x)
+        del attn
+        x = xd + one
+        xd = x + blocks.mlp_forward(bp["mlp"], x[:, None, :])[:, 0]
+        out["resid_kernels"].append(rel_err(xs["kernels"], xs["plain"]))
+        out["resid_kernels_last"].append(
+            rel_err(xs["kernels"][:, -1], xs["plain"][:, -1]))
+        out["resid_reordered"].append(rel_err(xs["reordered"], xs["plain"]))
+        out["resid_decode"].append(rel_err(xd, xs["kernels"][:, -1]))
+    del cache, kvs, c
+
+    def head(x):    # as forward and decode_step compute it
+        return (layers.rms_norm(x, params["final_norm"])
+                @ params["lm_head"])[..., :cfg.vocab_size]
+
+    logits = {n: head(x)[:, -1] for n, x in xs.items()}
+    logits["decode"] = head(xd)
+    return dict(
+        out, logits_kernels=rel_err(logits["kernels"], logits["plain"]),
+        logits_reordered=rel_err(logits["reordered"], logits["plain"]),
+        logits_decode=rel_err(logits["decode"], logits["kernels"]),
+        kernels_walk_is_forward=same_bits(logits["kernels"], full),
+        decode_walk_is_decode_step=same_bits(logits["decode"], step))
+
+
 def check_serve(server, batch) -> dict:
     """The serve path held to itself: the same params with kernels off
     (last-token prefill logits within SERVE_REL_BOUND, greedy tokens of
     the prefill and of the first decode step equal wherever the plain
     path's top two logits are further apart than that bound), and that
-    decode step's logits to the cache-free forward of the same prefix."""
+    decode step's logits to the cache-free forward of the same prefix.
+    ``serve_drift`` is printed first, so that a failing check shows which
+    layers moved."""
     lm, params = server.lm, server.params
     prompts = torch.from_numpy(np.stack([r.prompt for r in batch])).to(
         server.device)
@@ -756,10 +891,17 @@ def check_serve(server, batch) -> dict:
         if tok is None:
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
         step, cache = m.decode_step(params, tok, cache, cur)
-        res[name] = (logits.float(), step.float())
+        res[name] = (logits, step)
         del cache
         torch.cuda.empty_cache()
-    out = dict(prefill_rel_err=rel_err(res["kernels"][0], res["plain"][0]))
+    full = lm.forward(params, {"tokens": torch.cat(
+        [prompts, tok[:, None]], dim=1)})[0][:, -1, :lm.cfg.vocab_size]
+    out = dict(prefill_rel_err=rel_err(res["kernels"][0], res["plain"][0]),
+               decode_vs_forward_rel_err=rel_err(res["kernels"][1], full))
+    say(phase="serve_drift", **out, **serve_drift(
+        lm, params, prompts, tok, max_len, full, res["kernels"][1]))
+    torch.cuda.empty_cache()
+    res = {k: tuple(x.float() for x in r) for k, r in res.items()}
     assert out["prefill_rel_err"] <= SERVE_REL_BOUND, out
     for i, what in enumerate(("prefill", "decode")):
         want, got = res["plain"][i], res["kernels"][i]
@@ -770,9 +912,6 @@ def check_serve(server, batch) -> dict:
         assert bool(same[sure].all()), f"greedy {what} tokens differ"
         out[f"{what}_greedy_checked"] = int(sure.sum())
         out[f"{what}_greedy_equal"] = int(same.sum())
-    full = lm.forward(params, {"tokens": torch.cat(
-        [prompts, tok[:, None]], dim=1)})[0][:, -1, :lm.cfg.vocab_size]
-    out["decode_vs_forward_rel_err"] = rel_err(res["kernels"][1], full)
     assert out["decode_vs_forward_rel_err"] <= SERVE_REL_BOUND, out
     assert bool(torch.isfinite(full).all()), "forward: non-finite logits"
     return out
@@ -799,8 +938,10 @@ def run_serve(dev) -> dict:
     launches = read_launches("serve")
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
 
-    assert launches["flash_attention"] == cfg.num_layers * stats.batches, \
-        f"flash attention ran {launches['flash_attention']} times"
+    routes = dict(fa_kernel.LIB.entry_launches)
+    assert launches["flash_attention"] == cfg.num_layers * stats.batches \
+        == routes["flash_attention_fwd_tc"], \
+        f"flash attention ran {routes} times"
     assert launches["bitonic_sort"] > 0 and launches["sorted_gather"] > 0, \
         "the embedding lookups did not go through the scheduler's kernels"
     assert stats.batches == 2 and stats.requests == SERVE_REQUESTS
@@ -822,7 +963,7 @@ def run_serve(dev) -> dict:
         prefill_tokens_per_s=stats.prefill_tokens / stats.prefill_s,
         decode_s_per_step=stats.decode_s / stats.decode_steps,
         tokens_per_s=(stats.prefill_tokens + generated) / stats.wall_s,
-        launches=launches, peak_mem_gb=peak,
+        launches=launches, flash_attention_routes=routes, peak_mem_gb=peak,
         sample_output=reqs[0].output, **consistency)
 
 
@@ -835,27 +976,58 @@ def timings(dev, s) -> dict:
     res = {}
 
     sort = {}
-    for shape in [(BATCH * SEQ // SCHED_BATCH, SCHED_BATCH),
-                  (1, BATCH * SEQ)]:
-        keys = s["idx"].to(torch.int32).reshape(shape).contiguous()
-        vals = torch.arange(n, dtype=torch.int32,
-                            device=dev).reshape(shape).contiguous()
-        ids = torch.arange(shape[1], dtype=torch.int32,
-                           device=dev).expand(shape).contiguous()
+    # The scheduler's batches, the serve path's prefill lookup, the 1-D
+    # stream at the wrapper's chunk and, through the kernels' launcher,
+    # at three others (the readings behind DEFAULT_CHUNK).
+    for shape, chunk in [((BATCH * SEQ // SCHED_BATCH, SCHED_BATCH), None),
+                         ((BATCH, SERVE_PROMPT), None),
+                         ((1, BATCH * SEQ), None), ((1, BATCH * SEQ), 1024),
+                         ((1, BATCH * SEQ), 4096),
+                         ((1, BATCH * SEQ), bs_kernel.MAX_CHUNK)]:
         g, m = shape
+        keys = s["idx"].to(torch.int32).reshape(-1)[:g * m].reshape(
+            shape).contiguous()
+        vals = torch.arange(g * m, dtype=torch.int32,
+                            device=dev).reshape(shape).contiguous()
+        ids = torch.arange(m, dtype=torch.int32,
+                           device=dev).expand(shape).contiguous()
         stages = (m.bit_length() - 1) * m.bit_length() // 2
         bytes_moved = 4 * g * m * 5
         ops = g * (m // 2) * stages
         bound = max(bytes_moved / HBM_BYTES_PER_S,
                     ops / NONTENSOR_OPS_PER_S) * 1e3
-        sort[f"{g}x{m}"] = dict(
-            ms=time_ms(lambda: bs_kernel.bitonic_sort_batched(keys, vals)),
+        c = bs_kernel.default_chunk(m) if chunk is None else chunk
+        call = lambda: bs_kernel.bitonic_sort_batched(keys, vals)
+        if chunk is not None:     # another chunk than the wrapper's, same bits
+            call = lambda: bs_kernel._sort_on_card(keys, vals, chunk)
+            for g_, w in zip(call(), bs_kernel.bitonic_sort_batched(keys,
+                                                                    vals)):
+                assert torch.equal(g_, w), f"bitonic_sort chunk {chunk}"
+        lib = lambda: torch.sort(keys, dim=-1, stable=True)
+        name = f"{g}x{m}" + ("" if chunk is None else f" chunk {c}")
+        # The device launches of a call, counted in the profiler's trace,
+        # must be the plan's: its local and global kernels, and nothing
+        # else.
+        trace, plan = device_trace(call), bs_kernel.stage_plan(m, c)
+        local = sum(kind == "local" for kind, _, _ in plan)
+        want = {"local": local, "stage": len(plan) - local}
+        got = {kind: sum(x for k, x in trace["by_kernel"].items()
+                         if f"bitonic_{kind}_kernel" in k) for kind in want}
+        assert got == want and trace["launches"] == len(plan), \
+            f"bitonic_sort {name}: launched {trace['by_kernel']}, plan {want}"
+        if chunk is None and m <= bs_kernel.DEFAULT_CHUNK:
+            assert trace["launches"] == 1, f"bitonic_sort {name}"
+        sort[name] = dict(
+            ms=time_ms(call), device_ms=trace["ms"],
             plain_ms=time_ms(lambda: bs_kernel.sort_network(keys, ids, vals)),
-            library_ms=time_ms(lambda: torch.sort(keys, dim=-1, stable=True)),
+            library_ms=time_ms(lib),
+            library_device_ms=device_trace(lib)["ms"],
             bound_ms=bound,
             bound_by=("bytes" if bytes_moved / HBM_BYTES_PER_S
                       >= ops / NONTENSOR_OPS_PER_S else "operations"),
-            stages=stages)
+            stages=stages, chunk=c,
+            device_launches_per_call=trace["launches"],
+            device_launches_by_kernel=trace["by_kernel"])
     res["bitonic_sort"] = sort
 
     sidx32 = sidx.to(torch.int32)
@@ -1014,7 +1186,8 @@ def run(dev) -> None:
         kernels_built=sorted(reports))
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if ("registers" in line or "spill" in line
+                    or "error" in line.lower()):
                 print(f"  ptxas[{name}]: {line.strip()}", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)

@@ -98,16 +98,18 @@ def build(names=SOURCES) -> dict[str, str]:
 
 
 class CudaLibrary:
-    """One kernel's shared library: its C entries and its launch count.
+    """One kernel's shared library: its C entries and its launch counts.
 
     ``launches`` rises by one for each successful ``launch`` call — one
-    per wrapper call that ran the kernel on the GPU — and nowhere else.
+    per wrapper call that ran the kernel on the GPU — and nowhere else;
+    ``entry_launches[entry]`` counts the same calls per C entry (a route).
     """
 
     def __init__(self, name: str, entries: dict[str, tuple]):
         self.name = name
         self.entries = entries
         self.launches = 0
+        self.entry_launches = dict.fromkeys(entries, 0)
         self._fns: dict[str, ctypes._CFuncPtr] = {}
         self._lib = None
 
@@ -132,3 +134,8 @@ class CudaLibrary:
             msg = self._lib.error_string(err).decode()
             raise RuntimeError(f"{self.name}.{entry}: CUDA error {err}: {msg}")
         self.launches += 1
+        self.entry_launches[entry] += 1
+
+    def reset_launches(self) -> None:
+        self.launches = 0
+        self.entry_launches = dict.fromkeys(self.entries, 0)

@@ -1,13 +1,16 @@
 """Flash attention — the DMA engine applied to KV streaming (B6).
 
-``flash_attention_fwd(q, k, v, causal=..., window=...)`` is GQA attention
-in the model layout ``(B, S, H, hd)``: float32 scores, a running max and
-sum, float32 output accumulators, a causal, sliding-window or bidirectional
-mask, and the output in q's dtype. On a CUDA tensor it launches the kernel
-of ``csrc/flash_attention.cu`` (one block per (batch * head, 64 query
-rows), the key tiles a loop inside the block, the ragged tail of S masked);
-on a CPU tensor it runs ``flash_attention_plain``, the blocked
-online-softmax loop of the reference's XLA path
+``flash_attention_fwd(q, k, v, causal=..., window=..., out_dtype=...)`` is
+GQA attention in the model layout ``(B, S, H, hd)``: float32 scores, a
+running max and sum, float32 output accumulators, a causal, sliding-window
+or bidirectional mask, and the output in q's dtype (or float32, unrounded,
+with ``out_dtype=torch.float32``). On a CUDA tensor it launches a kernel of
+``csrc/flash_attention.cu``, chosen by dtype: bf16 and f16 go to the
+tensor-core kernel (wgmma, P split into ``kPTerms`` terms of the input
+type; entry ``flash_attention_fwd_tc``), float32 to the
+CUDA-core kernel (entry ``flash_attention_fwd``); ``LIB.entry_launches``
+counts each route. On a CPU tensor it runs ``flash_attention_plain``, the
+blocked online-softmax loop of the reference's XLA path
 (``repro.models.layers.flash_attention``), whose result does not depend on
 its block sizes beyond float32 summation order. Counterpart of
 ``repro.kernels.flash_attention.kernel``; unlike that Pallas op, any S >= 1
@@ -22,8 +25,16 @@ from repro_torch.kernels._build import F32, I32, I64, P, CudaLibrary
 
 LIB = CudaLibrary("flash_attention", {
     "flash_attention_fwd": (P, P, P, P, I32, I32, I32, I32, I32, I32, I32,
-                            F32, I32, I64, I64, I64, I64, I64, I64, I64, I64,
-                            I64, P)})
+                            F32, I64, I64, I64, I64, I64, I64, I64, I64, I64,
+                            P),
+    "flash_attention_fwd_tc": (P, P, P, P, I32, I32, I32, I32, I32, I32, I32,
+                               F32, I32, I32, I64, I64, I64, I64, I64, I64,
+                               I64, I64, I64, P)})
+# The C entry of each input dtype: the tensor cores for bf16 and f16, the
+# CUDA cores for float32 (TF32 would round q and k far beyond 3e-5).
+ROUTES = {torch.float32: "flash_attention_fwd",
+          torch.bfloat16: "flash_attention_fwd_tc",
+          torch.float16: "flash_attention_fwd_tc"}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 128
 Q_TILE = 64                       # query rows of one block of the kernel
@@ -34,12 +45,14 @@ NEG = -0.7 * torch.finfo(torch.float32).max
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
-                          q_block: int = 512, kv_block: int = 1024):
+                          q_block: int = 512, kv_block: int = 1024,
+                          out_dtype=None):
     """Blocked online-softmax attention in torch: q blocks outer, kv blocks
     inner, float32 throughout, so the score matrix never exists beyond one
     (q_block, kv_block) tile per (batch, head). KV blocks that the mask
     leaves no live key in are skipped (their only effect would be
-    probabilities that a later live block's correction factor zeroes)."""
+    probabilities that a later live block's correction factor zeroes).
+    The result is rounded once to ``out_dtype`` (None: q's dtype)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -48,7 +61,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
     qg = q.reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4)   # (B,KV,G,S,hd)
     kg = k.permute(0, 2, 1, 3)                                # (B,KV,S,hd)
     vg = v.permute(0, 2, 1, 3)
-    out = torch.empty((B, KV, G, S, hd), dtype=q.dtype, device=q.device)
+    out_dtype = _out_dtype(q, out_dtype)
+    out = torch.empty((B, KV, G, S, hd), dtype=out_dtype, device=q.device)
     for q0 in range(0, S, q_block):
         q1 = min(q0 + q_block, S)
         qb = qg[:, :, :, q0:q1].float()
@@ -78,8 +92,26 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
             l = l * corr + p.sum(-1)
             o = o * corr[..., None] + torch.einsum("bkgqc,bkcd->bkgqd", p, vb)
             m = m_new
-        out[:, :, :, q0:q1] = (o / l.clamp_min(1e-37)[..., None]).to(q.dtype)
+        out[:, :, :, q0:q1] = (o / l.clamp_min(1e-37)[..., None]).to(
+            out_dtype)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+
+
+def _out_dtype(q, out_dtype) -> torch.dtype:
+    """None means q's dtype; q's dtype and float32 are taken."""
+    if out_dtype is None:
+        return q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise ValueError(f"out_dtype {out_dtype!r}: need None, {q.dtype} or "
+                         f"torch.float32")
+    return out_dtype
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Every row of t (hd elements, stride 1) starts 16-byte aligned."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (st * size) % 16 == 0 for st in t.stride()[:3])
 
 
 def _check(q, k, v, window) -> None:
@@ -107,34 +139,45 @@ def _check(q, k, v, window) -> None:
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window=None,
-                        q_block: int = 512,
-                        kv_block: int = 1024) -> torch.Tensor:
+                        q_block: int = 512, kv_block: int = 1024,
+                        out_dtype=None) -> torch.Tensor:
     """Attention of q ``(B,S,H,hd)`` over k, v ``(B,S,KV,hd)``; returns a new
-    contiguous ``(B,S,H,hd)`` tensor in q's dtype.
+    contiguous ``(B,S,H,hd)`` tensor in ``out_dtype`` (None: q's dtype;
+    ``torch.float32`` stores the float32 result unrounded).
 
     The three share one float dtype (float32, bf16 or f16) and one device;
     H is a multiple of KV; hd a multiple of 16 up to 128; ``window`` None
     or >= 1. Any layout whose head_dim axis has stride 1 runs without a
-    copy. ``q_block`` and ``kv_block`` are the plain version's tiles (CPU
-    tensors only); the kernel's are fixed. Anything else raises
-    ``ValueError``.
+    copy (for bf16 and f16, one whose rows also start 16-byte aligned; any
+    other is copied first). ``q_block`` and
+    ``kv_block`` are the plain version's tiles (CPU tensors only); the
+    kernels' are fixed. Anything else raises ``ValueError``.
     """
     _check(q, k, v, window)
+    out_dtype = _out_dtype(q, out_dtype)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_block=q_block, kv_block=kv_block)
+                                     q_block=q_block, kv_block=kv_block,
+                                     out_dtype=out_dtype)
     B, S, H, hd = q.shape
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head_dim axis of q, k and v must have stride 1")
     if B * H >= 1 << 31 or -(-S // Q_TILE) > MAX_Q_TILES:
         raise ValueError(f"B*H={B * H}, S={S} exceed the kernel's grid")
-    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, S, H, hd), dtype=out_dtype, device=q.device)
     if out.numel() == 0:
         return out
-    LIB.launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], hd,
-               int(causal), 0 if window is None else int(window), hd ** -0.5,
-               DTYPES[q.dtype], *q.stride()[:3], *k.stride()[:3],
-               *v.stride()[:3],
+    entry = ROUTES[q.dtype]
+    route_args = ()
+    if entry == "flash_attention_fwd_tc":
+        # 16-byte cp.async copies: every row must start 16-byte aligned (a
+        # fresh copy does; a contiguous view at an odd offset does not).
+        q, k, v = (t if _aligned(t) else t.clone(
+            memory_format=torch.contiguous_format) for t in (q, k, v))
+        route_args = (DTYPES[q.dtype], int(out_dtype == torch.float32))
+    LIB.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), B, S, H, k.shape[2], hd, int(causal),
+               0 if window is None else int(window), hd ** -0.5, *route_args,
+               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                torch.cuda.current_stream(q.device).cuda_stream)
     return out

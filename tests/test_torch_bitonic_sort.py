@@ -146,3 +146,77 @@ def test_property_duplicate_heavy_keys_match_argsort(xs):
     inv = tops.inverse_permutation(perm)
     np.testing.assert_array_equal(inv.numpy(), np.argsort(order,
                                                           kind="stable"))
+
+
+# --- The kernel's launch plan: stages whose stride fits a chunk run in
+# shared memory in one launch.
+def _network(n):
+    m = n.bit_length() - 1
+    return [(k, j) for k in range(1, m + 1) for j in range(k - 1, -1, -1)]
+
+
+def _plan_stages(plan, chunk):
+    """The network stages (k, j) that ``plan`` runs, in its order: a local
+    launch (k_first, k_last) runs j = min(k, c)-1..0 for each k."""
+    c = chunk.bit_length() - 1
+    stages = []
+    for kind, a, b in plan:
+        if kind == "global":
+            stages.append((a, b))
+        else:
+            stages += [(k, j) for k in range(a, b + 1)
+                       for j in range(min(k, c) - 1, -1, -1)]
+    return stages
+
+
+@pytest.mark.parametrize("n,chunk,launches", [
+    (512, 4096, 1), (1024, 4096, 1), (4096, 4096, 1), (8192, 4096, 3),
+    (32768, 4096, 10), (32768, 16384, 3), (32768, 1024, 21),
+    (32768, 2048, 15), (2, 2, 1), (8, 2, 6), (64, 8, 10)])
+def test_stage_plan_runs_every_stage_once_in_network_order(n, chunk,
+                                                           launches):
+    plan = tkernel.stage_plan(n, chunk)
+    c = min(chunk, n)
+    assert len(plan) == launches
+    assert plan[0] == ("local", 1, c.bit_length() - 1)
+    assert _plan_stages(plan, c) == _network(n)
+    for kind, a, b in plan:
+        if kind == "global":      # only strides a chunk cannot hold
+            assert (1 << b) >= c
+
+
+@pytest.mark.parametrize("g,n", [(3, 256), (1, 2), (2, 64), (4, 128),
+                                 (1, 1024)])
+@pytest.mark.parametrize("kind", ["duplicates", "int32_max"])
+def test_network_by_plan_equals_stable_sort(g, n, kind, rng):
+    """Every plan runs the network's stages in the network's order (the
+    test above), so the plain network is the plan's result: it must equal
+    a stable sort on duplicate-heavy keys and on real INT32_MAX keys."""
+    if kind == "duplicates":
+        keys = rng.integers(0, 4, (g, n)).astype(np.int32)
+    else:
+        keys = rng.integers(0, 50, (g, n)).astype(np.int32)
+        keys[:, rng.integers(0, n, max(1, n // 3))] = I32MAX
+    vals = rng.integers(0, 10_000, (g, n)).astype(np.int32)
+    tk, tv = torch.from_numpy(keys), torch.from_numpy(vals)
+    ids = torch.arange(n, dtype=torch.int32).expand(g, n).contiguous()
+    skeys, perm, svals = tkernel.sort_network(tk, ids, tv)
+    want_keys, want_perm = torch.sort(tk, dim=-1, stable=True)
+    assert torch.equal(skeys, want_keys)
+    assert torch.equal(perm.long(), want_perm)
+    assert torch.equal(svals, torch.take_along_dim(tv, want_perm, dim=-1))
+    _eq(perm, jnp.argsort(jnp.asarray(keys), axis=-1, stable=True))
+    got = tkernel.bitonic_sort_batched(tk, tv)
+    for t, w in zip(got, (skeys, perm, svals)):
+        assert torch.equal(t, w)
+
+
+@pytest.mark.parametrize("n,chunk,launches", [
+    (2, 2, 1), (512, 512, 1), (1024, 1024, 1), (2048, 2048, 1),
+    (32768, 2048, 15)])
+def test_default_chunk_fits_the_row_and_a_block(n, chunk, launches):
+    """The wrapper's chunk: the whole row up to DEFAULT_CHUNK (one launch
+    at the scheduler's 512 and the serve path's 1024), never past
+    MAX_CHUNK's shared memory."""
+    assert tkernel.default_chunk(n) == chunk <= tkernel.MAX_CHUNK
+    assert len(tkernel.stage_plan(n, tkernel.default_chunk(n))) == launches

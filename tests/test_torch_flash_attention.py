@@ -7,6 +7,8 @@ Pallas kernel in interpret mode and the XLA-path
 Tolerances are the reference tests' own (tests/kernels/
 test_flash_attention.py): float32 3e-5, bf16 2e-2."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ from repro.kernels.flash_attention import ops as jops
 from repro.kernels.flash_attention.ref import attention_ref as jref
 from repro.models import layers as jlayers
 from repro_torch import convert
+from repro_torch.kernels._build import CSRC
 from repro_torch.kernels.flash_attention import kernel as tkernel
 from repro_torch.kernels.flash_attention import ops as tops
 from repro_torch.kernels.flash_attention import ref as tref
@@ -141,3 +144,137 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     with pytest.raises(ValueError):
         tkernel.flash_attention_fwd(q, k, v, **kw)
     assert tkernel.LIB.launches == 0
+
+
+# --- The tensor-core kernel's arithmetic: P split into terms of bf16, and
+# the out_dtype keyword. Small versions of chip_smoke.py's ATTN_CASES:
+# (S, hd, causal, window).
+SPLIT_CASES = {
+    "serve_like": (256, 128, True, None),
+    "window_20": (300, 64, True, 20),
+    "bidir_hd80": (200, 80, False, None),
+    "ragged_hd128": (250, 128, True, None),
+    "window_3": (200, 128, True, 3),
+}
+
+
+# The tensor-core kernel's term count, stated once, in its source.
+P_TERMS = int(re.search(r"constexpr int kPTerms = (\d+);",
+                        (CSRC / "flash_attention.cu").read_text()).group(1))
+
+
+def split_p(p, dtype, terms):
+    """The kernel's split: ``p`` (float32) as ``terms`` tensors of
+    ``dtype``, each the remainder of the ones before (exact in float32),
+    rounded once; their float32 sum approximates ``p``."""
+    out, rest = [], p
+    for _ in range(terms):
+        out.append(rest.to(dtype))
+        rest = rest - out[-1].float()
+    return out
+
+
+def _softmax_rows(case, seed):
+    """Dense float32 P, its row sums and V (float64) for one (batch,
+    head) on bf16-valued q, k, v, as the kernel sees them."""
+    S, hd, causal, window = SPLIT_CASES[case]
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((S, hd)).astype(
+        np.float32)).to(torch.bfloat16).double() for _ in range(3))
+    s = (q @ k.T) * hd ** -0.5
+    pos = torch.arange(S)
+    mask = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    s = torch.where(mask, s, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True)).float()   # float32 P
+    return p, p.double().sum(-1, keepdim=True), v
+
+
+@pytest.mark.parametrize("terms,bound", [(2, 2.0 ** -16), (3, 2.0 ** -24)])
+def test_split_of_p_reconstructs_p(terms, bound):
+    rng = np.random.default_rng(3)
+    p = torch.from_numpy(np.exp(-rng.exponential(3.0, 100_000)).astype(
+        np.float32))
+    parts = split_p(p, torch.bfloat16, terms)
+    assert len(parts) == terms and all(t.dtype == torch.bfloat16
+                                       for t in parts)
+    got = sum(t.double() for t in parts)
+    rel = ((got - p.double()).abs() / p.double()).max()
+    assert float(rel) <= bound
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_p_keeps_attention_within_3e5_where_one_rounding_does_not(
+        case):
+    """P V with P split into bf16 terms (exact float64 products, as the
+    tensor cores accumulate exact bf16 products in float32) stays within
+    the reference's 3e-5 of the float32 result; P rounded once to bf16
+    does not. This is why the kernel splits P."""
+    worst = {}
+    for seed in range(3):
+        p, l, v = _softmax_rows(case, seed)
+        want = (p.double() @ v) / l
+        for terms in (1, 2, P_TERMS):
+            parts = split_p(p, torch.bfloat16, terms)
+            got = sum(t.double() for t in parts) @ v / l
+            err = float((got - want).abs().max())
+            worst[terms] = max(worst.get(terms, 0.0), err)
+    assert worst[1] > 3e-5, worst
+    assert worst[2] <= 3e-5 and worst[P_TERMS] <= 3e-5, worst
+    assert worst[P_TERMS] <= worst[2]
+
+
+@pytest.mark.parametrize("dtype,bad", [
+    (torch.bfloat16, torch.float16), (torch.bfloat16, torch.float64),
+    (torch.bfloat16, torch.int32), (torch.bfloat16, "float32"),
+    (torch.float16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+def test_out_dtype_rejects_what_it_does_not_take(dtype, bad):
+    q = torch.zeros((1, 8, 4, 32), dtype=dtype)
+    k = v = torch.zeros((1, 8, 2, 32), dtype=dtype)
+    with pytest.raises(ValueError, match="out_dtype"):
+        tkernel.flash_attention_fwd(q, k, v, out_dtype=bad)
+    with pytest.raises(ValueError, match="out_dtype"):
+        tkernel.flash_attention_plain(q, k, v, out_dtype=bad)
+    assert tkernel.LIB.launches == 0
+
+
+@pytest.mark.parametrize("case", ["bf16", "ragged_window", "hd80_bidir"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_float32_output_rounds_once_to_the_default_output(case, dtype):
+    """``out_dtype=torch.float32`` is the same computation stored
+    unrounded: rounded once, it is the default output bit for bit."""
+    B, S, H, KV, hd, causal, window, qb, kb, _ = CASES[case]
+    _, (tq, tk, tv) = _qkv(case, seed=4)
+    tq, tk, tv = (t.to(dtype) for t in (tq, tk, tv))
+    kw = dict(causal=causal, window=window, q_block=qb, kv_block=kb)
+    got32 = tkernel.flash_attention_fwd(tq, tk, tv, out_dtype=torch.float32,
+                                        **kw)
+    assert got32.dtype == torch.float32 and got32.shape == (B, S, H, hd)
+    default = tkernel.flash_attention_fwd(tq, tk, tv, **kw)
+    same = tkernel.flash_attention_fwd(tq, tk, tv, out_dtype=dtype, **kw)
+    assert default.dtype == dtype
+    assert torch.equal(got32.to(dtype).view(torch.int16),
+                       default.view(torch.int16))
+    assert torch.equal(same.view(torch.int16), default.view(torch.int16))
+    # and the float32 output agrees with the JAX package's oracle on the
+    # same (converted) inputs within the float32 tolerance
+    q, k, v = (jnp.asarray(t.float().numpy()) for t in (tq, tk, tv))
+    want = jref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got32.numpy(), np.asarray(want, np.float32),
+                               rtol=3e-5, atol=3e-5)
+
+
+def test_alignment_check_of_the_tensor_core_route():
+    """The tensor-core kernel copies 16-byte pieces of each row: a row
+    stride or base that is not a multiple of 16 bytes makes the wrapper
+    copy the tensor first."""
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16)
+    assert tkernel._aligned(q)
+    wide = torch.zeros((1, 8, 4, 65), dtype=torch.bfloat16)
+    assert not tkernel._aligned(wide[..., 1:])       # 2-byte offset
+    assert not tkernel._aligned(wide[..., :64])      # 130-byte rows
+    assert tkernel._aligned(torch.zeros((1, 8, 4, 72),
+                                        dtype=torch.bfloat16)[..., 8:])

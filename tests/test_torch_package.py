@@ -73,7 +73,8 @@ def test_no_module_imports_jax_or_the_reference_package():
 
 
 def test_no_source_names_jax_or_the_reference_package():
-    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
+                 ROOT / "serve_repeat.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -222,3 +223,15 @@ def test_chip_smoke_fails_without_a_gpu_or_the_repo(alone, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_serve_repeat_fails_without_a_gpu():
+    """``serve_repeat.py`` exits non-zero and serves nothing where
+    ``torch.cuda.is_available()`` is false."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, str(ROOT / "serve_repeat.py"),
+                          "--repeats", "1"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "prefill_s" not in res.stdout
