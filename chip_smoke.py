@@ -24,7 +24,13 @@ Phases (a failing phase raises and the script exits non-zero):
    float32 output (``out_dtype=torch.float32``) rounded once, and that
    within 3e-5 of the plain float32 result (at the serve path's shape,
    windows, bidirectional hd 80, MQA, ragged S, S = 1). The sort also at
-   N equal to its default chunk, twice it and eight times it, G > 1.
+   N equal to its default chunk, twice it and eight times it, G > 1. The
+   gather also at the serve lookup's shape, one run of 40000, runs across
+   its spans, each access width and a misaligned table view; the DMA copy
+   at one to eight channels, ragged totals, chunks under 16 bytes and of
+   256 KB and a bulk write at an odd bf16 offset. Both kernels pick a
+   route by alignment, and each checked call's route is named from the
+   profiler's kernel names and held to the one its alignment calls for.
 4. slice — four main paths, each through the entry points a user calls,
    with every launch counter zeroed just before it and read just after;
    each of its kernels must have run:
@@ -36,7 +42,9 @@ Phases (a failing phase raises and the script exits non-zero):
      bf16 and in float32), ``cached_scatter``, and ``sort_requests`` as
      64 x 512 scheduler batches and as one 1-D row. Outputs are held to
      ``table[idx]`` and the plain paths, and a small case to a numpy
-     oracle.
+     oracle. Then each plain ``add`` of this batch (``coalesce_add_runs``
+     and the controller with kernels off, scheduler on and off, bf16 and
+     float32 values) is called twice and must give the same bits.
    - bulk: ``bulk_read`` of one yi-34b FFN weight (7168 x 20480 bf16) and
      ``bulk_write`` of one layer's prefill K and V into one sequence's
      KV cache (60 x 2 x 4096 x 8 x 128 bf16) at layer 30, held to the
@@ -54,18 +62,22 @@ Phases (a failing phase raises and the script exits non-zero):
      time through its tensor-core route, and the scheduler's sort and
      gather from the embedding lookups. Held to
      itself with kernels off (last-token prefill logits, greedy tokens)
-     and a decode step to the cache-free forward of its prefix; before
-     those checks, ``serve_drift`` prints where their differences arise,
-     layer by layer. Runs after every earlier phase's tensors are freed.
+     and a decode step to the cache-free forward of its prefix, and B6's
+     attention block at every layer within two bf16 ulps of the plain
+     block's largest magnitude; before those checks, ``serve_drift``
+     prints where their differences arise, layer by layer. Runs after
+     every earlier phase's tensors are freed.
 5. timing — per kernel at the main paths' shapes: the CUDA-event median
    of the kernel's wrapper, its plain version and one PyTorch library
    call computing the same function (none for the cache probe: no
    PyTorch call runs an LRU), beside the least time the card could take
-   (bytes over 3.35 TB/s, or operations over the peak rate). For the sort
-   and attention also the kernel's and the library call's device time
-   per call from ``torch.profiler`` (the wrapper's time includes the
-   host's), and the sort's device launches per call, counted in that
-   trace and held to its launch plan, and also at three other chunks.
+   (bytes over 3.35 TB/s, or operations over the peak rate). For the
+   sort, the gather, the DMA copy and attention also the kernel's and the
+   library call's device time per call from ``torch.profiler`` (the
+   wrapper's time includes the host's); the sort's device launches per
+   call, counted in that trace and held to its launch plan, and also at
+   three other chunks; the gather's and the DMA copy's device launches
+   per call and routes, which must be the TMA ones at these shapes.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -105,6 +117,7 @@ from repro_torch.kernels.dma_copy import ops as dc_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.sorted_gather import kernel as sg_kernel  # noqa: E402
 from repro_torch.kernels.sorted_scatter import kernel as ss_kernel  # noqa: E402
+from repro_torch.kernels.sorted_scatter.coalesce import coalesce_add_runs  # noqa: E402
 from repro_torch.launch.serve import Request, Server  # noqa: E402
 from repro_torch.models import blocks, layers  # noqa: E402
 from repro_torch.models.params import leaves, map_tree  # noqa: E402
@@ -168,6 +181,16 @@ ATTN_CASES = [
 # Relative bound of the serve path's self-consistency (max |diff| over the
 # largest reference logit magnitude).
 SERVE_REL_BOUND = 2e-2
+# B6's own error in the serve model: at every layer its attention block
+# within this many bf16 ulps of the plain block's largest magnitude, on the
+# same input.
+SERVE_ATTN_ULPS = 2.0
+# The routes of the kernels that choose one by alignment, by the names of
+# their CUDA kernels in a profiler trace.
+ROUTES = {"sorted_gather": {"gather_rows_tma_kernel": "tma",
+                            "gather_rows_vec_kernel": "vec"},
+          "dma_copy": {"dma_copy_tma_kernel": "tma",
+                       "dma_copy_cp_async_kernel": "cp_async"}}
 WARMUP, REPS = 3, 20
 
 
@@ -220,6 +243,28 @@ def device_trace(fn, reps: int = 10, tries: int = 3) -> dict:
                 by_kernel={k: n / reps for k, n in by_kernel.items()})
 
 
+def routes_taken(kernel: str, trace: dict) -> list:
+    """The routes of ``kernel`` whose CUDA kernels ran in ``trace`` (a
+    ``device_trace`` result)."""
+    return sorted({route for name in trace["by_kernel"]
+                   for pattern, route in ROUTES[kernel].items()
+                   if pattern in name})
+
+
+def route_of(kernel: str, fn, tries: int = 3) -> str:
+    """The one route that ``fn``'s launches of ``kernel`` took. A trace
+    that names none of the kernel's routes is taken again, up to ``tries``
+    times: the profiler has dropped the one kernel of a trace on the
+    H100."""
+    for _ in range(tries):
+        trace = device_trace(fn, reps=1)
+        taken = routes_taken(kernel, trace)
+        if taken:
+            break
+    assert len(taken) == 1, f"{kernel}: routes {taken} in {trace}"
+    return taken[0]
+
+
 def ulps(a: torch.Tensor, b: torch.Tensor) -> float:
     """Max |a - b| in units of one ulp (of a's dtype, bf16 or f16) of the
     larger magnitude."""
@@ -228,6 +273,16 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> float:
     _, exp = torch.frexp(torch.maximum(a.abs(), b.abs()))
     ulp = torch.ldexp(torch.ones_like(a), (exp - bits).clamp(min=floor))
     return float(((a - b).abs() / ulp).max())
+
+
+def block_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max |got - want| in ulps (of want's dtype) of want's largest
+    magnitude: one number for a whole block."""
+    bits = {torch.bfloat16: 8, torch.float16: 11}[want.dtype]
+    top = want.float().abs().max()
+    _, exp = torch.frexp(top)
+    ulp = torch.ldexp(torch.ones_like(top), exp - bits)
+    return float((got.float() - want.float()).abs().max() / ulp)
 
 
 @contextlib.contextmanager
@@ -307,8 +362,13 @@ def probe_bytes(n: int, sets: int, ways: int) -> int:
     return 4 * n + 2 * (3 * 4 * sets * ways + 4) + 8 * n
 
 
-def check_dma(dev, gen) -> None:
-    """B4, the staged copy, bit for bit against its plain version."""
+def check_dma(dev, gen) -> dict:
+    """B4, the staged copy, bit for bit against its plain version; each
+    call's route (``tma`` or ``cp_async``) named from the profiler's kernel
+    names and held to the one its alignment calls for. Returns the number
+    of checked calls per route."""
+    taken = collections.Counter()
+
     def rand(dtype, shape):
         if dtype.is_floating_point:
             return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -316,39 +376,55 @@ def check_dma(dev, gen) -> None:
         return torch.randint(0, hi, shape, generator=gen, device=dev,
                              dtype=dtype)
 
-    def both(src, chunk, channels):
-        got = dc_kernel.staged_copy(torch.empty_like(src), src,
-                                    chunk_elems=chunk, channels=channels)
+    def both(src, chunk, channels, route):
+        call = lambda: dc_kernel.staged_copy(
+            torch.empty_like(src), src, chunk_elems=chunk, channels=channels)
         want = dc_kernel.staged_copy_plain(torch.empty_like(src), src)
-        assert same_bits(got, want), \
-            f"dma_copy {src.dtype} n={src.numel()} chunk={chunk} " \
-            f"channels={channels}"
+        what = f"dma_copy {src.dtype} n={src.numel()} chunk={chunk} " \
+               f"channels={channels}"
+        assert same_bits(call(), want), what
+        got_route = route_of("dma_copy", call)
+        assert got_route == route, f"{what}: route {got_route}"
+        taken[route] += 1
 
     # Dtypes x channels x transaction sizes (256 B to the Table I maximum
-    # of 256 KB); 1,000,003 elements leave a ragged last chunk.
+    # of 256 KB). 1,000,000 elements: every total 16-byte aligned, the TMA
+    # ring, a ragged last chunk; 1,000,003: 1-, 2- or 4-byte aligned
+    # totals, the cp.async route.
     for dtype in (torch.bfloat16, torch.float32, torch.int32, torch.uint8):
-        src = rand(dtype, (1_000_003,))
-        for channels in (1, 4, 8):
-            for txn in (256, 16384, 262144):
-                both(src, dc_ops.chunk_elems(DMAConfig(
-                    max_transaction_bytes=txn), src.element_size()),
-                    channels)
+        for n, route in ((1_000_000, "tma"), (1_000_003, "cp_async")):
+            src = rand(dtype, (n,))
+            for channels in (1, 4, 8):
+                for txn in (256, 16384, 262144):
+                    both(src, dc_ops.chunk_elems(DMAConfig(
+                        max_transaction_bytes=txn), src.element_size()),
+                        channels, route)
     # More channels than chunks: 100 elements, one chunk, eight slots.
-    both(rand(torch.float32, (100,)), 65536, 8)
+    both(rand(torch.float32, (100,)), 65536, 8, "tma")
+    # Chunks under 16 bytes: 1, 6 and 8 bytes.
+    both(rand(torch.uint8, (100_000,)), 1, 1, "cp_async")
+    both(rand(torch.bfloat16, (100_003,)), 3, 4, "cp_async")
+    both(rand(torch.float32, (100_000,)), 2, 8, "cp_async")
     # The main path's shape: one FFN weight at PAPER_EVAL_CONFIG.
     w = rand(torch.bfloat16, FFN_SHAPE)
     cfg = PAPER_EVAL_CONFIG.dma
     assert same_bits(dc_ops.dma_copy(w, config=cfg), w), \
         "dma_copy at the FFN weight"
+    assert route_of("dma_copy", lambda: dc_ops.dma_copy(w, config=cfg)) \
+        == "tma", "dma_copy at the FFN weight: not the TMA ring"
     # A bulk write at an odd bf16 offset: a 2-byte aligned destination,
-    # and a float32 source cast to bf16 first.
+    # and a float32 source cast to bf16 first; the cp.async route.
     dst, src = rand(torch.bfloat16, (3, 1000, 7)), rand(torch.float32, (5001,))
     for offset in (777, 15_998):
-        got = dma_engine.bulk_write(dst, src, config=cfg, offset_elems=offset,
-                                    use_kernels=True)
+        call = lambda: dma_engine.bulk_write(
+            dst, src, config=cfg, offset_elems=offset, use_kernels=True)
         want = dma_engine.bulk_write(dst, src, config=cfg,
                                      offset_elems=offset, use_kernels=False)
-        assert same_bits(got, want), f"bulk_write at offset {offset}"
+        assert same_bits(call(), want), f"bulk_write at offset {offset}"
+        assert route_of("dma_copy", call) == "cp_async", \
+            f"bulk_write at offset {offset}: not the cp.async route"
+        taken["cp_async"] += 1
+    return dict(taken)
 
 
 def check_cache(dev) -> None:
@@ -427,23 +503,58 @@ def check_kernels(dev, gen):
         assert torch.equal(skeys, ref_keys), f"sort keys n={n}"
         assert torch.equal(perm.long(), ref_perm), f"sort perm n={n}"
 
-    # B2: gather at the main path's shape (the full table, the prefill
-    # batch's Zipf ids), then over dtypes and row pitches (access widths
-    # 16 .. 1).
-    for dtype, rows, d, n, hi in [
-            (torch.bfloat16, VOCAB, D_MODEL, n_main, "zipf"),
-            (torch.float32, 1000, 33, 5000, 1000),
-            (torch.bfloat16, 300, 7, 5000, 300),
-            (torch.int32, 200, 3, 5000, 200), (torch.uint8, 50, 5, 5000, 50)]:
+    # B2: the gather, bit-equal to index_select, each call's route named
+    # from the profiler's kernel names: the main path's shape (the full
+    # table, the prefill batch's sorted Zipf ids), the serve lookup's (8 x
+    # 1024 uniform ids, short runs), one run of 40000, runs that cross span
+    # boundaries with an odd n, then row pitches whose widest aligned
+    # access is 16, 8, 4, 2 and 1 bytes (rows of two column tiles too) and
+    # a table view two bytes into its buffer.
+    big = torch.randn((VOCAB, D_MODEL), generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    runs = torch.from_numpy(np.repeat(
+        np.sort(rng.choice(VOCAB, 200, replace=False)),
+        rng.choice([1, 2, 5, 15, 16, 17, 33, 100], 200)).astype(
+            np.int32)).to(dev)
+    if runs.numel() % 2 == 0:
+        runs = runs[1:]
+    gathers = [("scheduler batch", big, ints(0, "zipf", (n_main,)), "tma"),
+               ("serve lookup", big, ints(0, VOCAB, (BATCH * SERVE_PROMPT,)),
+                "tma"),
+               ("one run of 40000", big,
+                torch.full((40000,), VOCAB // 3, dtype=torch.int32, device=dev),
+                "tma"),
+               ("runs across spans", big, runs, "tma")]
+    for dtype, rows, d, n, route in [
+            (torch.bfloat16, 300, 64, 5000, "tma"),
+            (torch.float32, 100, 5000, 3001, "tma"),
+            (torch.bfloat16, 500, 4, 5000, "vec"),
+            (torch.float32, 1000, 33, 5000, "vec"),
+            (torch.bfloat16, 300, 7, 5000, "vec"),
+            (torch.int32, 200, 3, 5000, "vec"),
+            (torch.uint8, 50, 5, 5000, "vec"),
+            (torch.uint8, 100, 20001, 999, "vec")]:
         if dtype.is_floating_point:
             table = torch.randn((rows, d), generator=gen, device=dev,
                                 dtype=dtype)
         else:
             table = ints(0, 100, (rows, d)).to(dtype)
-        sidx = torch.sort(ints(0, hi, (n,))).values
-        got = sg_kernel.gather_rows(table, sidx)
-        assert torch.equal(got, sg_kernel.gather_rows_plain(table, sidx)), \
-            f"gather {dtype} d={d}"
+        gathers.append((f"{dtype} {rows}x{d}", table, ints(0, rows, (n,)),
+                        route))
+    flat = torch.randn((1 + 300 * 64,), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    gathers.append(("table view at a 2-byte offset", flat[1:].view(300, 64),
+                    ints(0, 300, (5000,)), "vec"))
+    gather_routes = {}
+    for name, table, idx, route in gathers:
+        sidx = torch.sort(idx).values
+        call = lambda: sg_kernel.gather_rows(table, sidx)
+        assert same_bits(call(), sg_kernel.gather_rows_plain(table, sidx)), \
+            f"gather {name}"
+        gather_routes[name] = route_of("sorted_gather", call)
+        assert gather_routes[name] == route, \
+            f"gather {name}: route {gather_routes[name]}"
+    del big, gathers
 
     # B3: set bit-equal; add within the stated tolerance; first at the main
     # path's shape, where a hot token's run is thousands of rows long.
@@ -511,11 +622,11 @@ def check_kernels(dev, gen):
                 want32)
         errs["sorted_scatter"] = max(errs["sorted_scatter"], float(
             (got.double() - want.double()).abs().max()))
-    check_dma(dev, gen)
+    dma_routes = check_dma(dev, gen)
     check_cache(dev)
     errs["dma_copy"] = errs["cache_lookup"] = 0.0   # bit-equal, asserted
     torch.cuda.synchronize()
-    return errs, mixed
+    return errs, mixed, dict(sorted_gather=gather_routes, dma_copy=dma_routes)
 
 
 def run_slice(dev, gen) -> dict:
@@ -600,11 +711,51 @@ def run_slice(dev, gen) -> dict:
 
     sidx, perm = torch.sort(idx.reshape(-1), stable=True)
     return dict(table=table, idx=idx, sidx=sidx, svals=vals.reshape(-1, D_MODEL)[perm],
+                grads=grads, grads32=grads32,
                 sgrads=grads.reshape(-1, D_MODEL)[perm],
                 sgrads32=grads32.reshape(-1, D_MODEL)[perm], launches=launches,
                 slice_s=slice_s, add_ulps=add_ulps, add32=add32,
                 distinct=int(uniq.size), hot_hits=int(
                     hot.hit_mask(idx).sum()))
+
+
+def check_plain_add(dev, s) -> dict:
+    """The plain ``add`` repeats its bits on the card: each plain ``add``
+    of the main path, called twice outside ``deterministic()``, at the
+    scheduler path's batch (32768 Zipf slots into the 64000 x 7168 bf16
+    table; the hot token's run is thousands of rows long), with bf16 and
+    with float32 values, through ``coalesce_add_runs`` on the sorted batch
+    and through the controller with kernels off, scheduled and with the
+    scheduler disabled."""
+    table, idx, sidx = s["table"], s["idx"], s["sidx"]
+    unscheduled = MemoryController(dataclasses.replace(
+        PAPER_EVAL_CONFIG, scheduler=dataclasses.replace(
+            PAPER_EVAL_CONFIG.scheduler, enabled=False)), device=dev)
+    scheduled = MemoryController(PAPER_EVAL_CONFIG, use_kernels=False,
+                                 device=dev)
+    out = {"longest_run": int(torch.unique_consecutive(
+        sidx, return_counts=True)[1].max())}
+    for name, grads, sgrads in (("bf16", s["grads"], s["sgrads"]),
+                                ("float32", s["grads32"], s["sgrads32"])):
+        calls = {
+            "coalesce_add_runs": lambda: coalesce_add_runs(table, sidx,
+                                                           sgrads),
+            "scheduled": lambda: scheduled.scatter(table, idx, grads,
+                                                   mode="add"),
+            "unscheduled": lambda: unscheduled.scatter(table, idx, grads,
+                                                       mode="add")}
+        results = {}
+        for path, fn in calls.items():
+            first = fn()
+            torch.cuda.synchronize()
+            assert same_bits(first, fn()), \
+                f"plain add ({path}, {name} values): other bits on a second call"
+            results[path] = first
+        out[f"{name}_values_same_bits_twice"] = sorted(results)
+        out[f"{name}_values_unscheduled_is_scheduled"] = same_bits(
+            results["unscheduled"], results["scheduled"])
+        del results
+    return out
 
 
 def zero_launches() -> None:
@@ -811,7 +962,9 @@ def serve_drift(lm, params, prompts, tok, max_len, full, step) -> dict:
     (the kernels walk's), ``resid_kernels`` and ``resid_reordered`` the
     residual stream after the layer against the plain walk's (all
     positions; ``resid_kernels_last`` the last one), ``resid_decode`` the
-    decode step's against the kernels walk's last position. ``logits_*``
+    decode step's against the kernels walk's last position;
+    ``attn_b6_ulps`` is ``attn_b6`` counted as max |diff| in bf16 ulps of
+    the plain block's largest magnitude, with its worst layer. ``logits_*``
     compare the last position's logits the same way, and the two
     ``*_is_*`` flags say whether the walks reproduce the entry points'
     bits: ``full``, the last position of ``forward``, and ``step``, the
@@ -837,6 +990,7 @@ def serve_drift(lm, params, prompts, tok, max_len, full, step) -> dict:
                 for n, cf in cfgs.items()}
         b6 = blocks.attn_forward(bp["attn"], xs["plain"], cfg, pos)[0]
         out["attn_b6"].append(rel_err(b6, attn["plain"]))
+        out["attn_b6_ulps"].append(block_ulps(b6, attn["plain"]))
         del b6
         # The same input's K/V goes into the cache's slot cur first; the
         # decode walk's own then overwrites it.
@@ -863,8 +1017,11 @@ def serve_drift(lm, params, prompts, tok, max_len, full, step) -> dict:
 
     logits = {n: head(x)[:, -1] for n, x in xs.items()}
     logits["decode"] = head(xd)
+    worst = int(np.argmax(out["attn_b6_ulps"]))
     return dict(
-        out, logits_kernels=rel_err(logits["kernels"], logits["plain"]),
+        out, attn_b6_worst_layer=worst,
+        attn_b6_worst_ulps=out["attn_b6_ulps"][worst],
+        logits_kernels=rel_err(logits["kernels"], logits["plain"]),
         logits_reordered=rel_err(logits["reordered"], logits["plain"]),
         logits_decode=rel_err(logits["decode"], logits["kernels"]),
         kernels_walk_is_forward=same_bits(logits["kernels"], full),
@@ -876,9 +1033,11 @@ def check_serve(server, batch) -> dict:
     (last-token prefill logits within SERVE_REL_BOUND, greedy tokens of
     the prefill and of the first decode step equal wherever the plain
     path's top two logits are further apart than that bound), and that
-    decode step's logits to the cache-free forward of the same prefix.
-    ``serve_drift`` is printed first, so that a failing check shows which
-    layers moved."""
+    decode step's logits to the cache-free forward of the same prefix; and
+    B6's own error: at every layer, B6's attention block within
+    SERVE_ATTN_ULPS bf16 ulps of the plain block's largest magnitude on the
+    same input (``serve_drift``'s ``attn_b6_ulps``). ``serve_drift`` is
+    printed first, so that a failing check shows which layers moved."""
     lm, params = server.lm, server.params
     prompts = torch.from_numpy(np.stack([r.prompt for r in batch])).to(
         server.device)
@@ -898,9 +1057,15 @@ def check_serve(server, batch) -> dict:
         [prompts, tok[:, None]], dim=1)})[0][:, -1, :lm.cfg.vocab_size]
     out = dict(prefill_rel_err=rel_err(res["kernels"][0], res["plain"][0]),
                decode_vs_forward_rel_err=rel_err(res["kernels"][1], full))
-    say(phase="serve_drift", **out, **serve_drift(
-        lm, params, prompts, tok, max_len, full, res["kernels"][1]))
+    drift = serve_drift(lm, params, prompts, tok, max_len, full,
+                        res["kernels"][1])
+    say(phase="serve_drift", **out, **drift)
     torch.cuda.empty_cache()
+    out.update(attn_b6_worst_layer=drift["attn_b6_worst_layer"],
+               attn_b6_worst_ulps=drift["attn_b6_worst_ulps"])
+    assert drift["attn_b6_worst_ulps"] <= SERVE_ATTN_ULPS, \
+        f"B6's attention block {drift['attn_b6_worst_ulps']} bf16 ulps " \
+        f"from the plain one at layer {drift['attn_b6_worst_layer']}"
     res = {k: tuple(x.float() for x in r) for k, r in res.items()}
     assert out["prefill_rel_err"] <= SERVE_REL_BOUND, out
     for i, what in enumerate(("prefill", "decode")):
@@ -1031,12 +1196,7 @@ def timings(dev, s) -> dict:
     res["bitonic_sort"] = sort
 
     sidx32 = sidx.to(torch.int32)
-    gather_bytes = 4 * n + distinct * rb + n * rb
-    res["sorted_gather"] = {f"{n}x{table.shape[1]}": dict(
-        ms=time_ms(lambda: sg_kernel.gather_rows(table, sidx32)),
-        plain_ms=time_ms(lambda: sg_kernel.gather_rows_plain(table, sidx32)),
-        library_ms=time_ms(lambda: torch.index_select(table, 0, sidx32)),
-        bound_ms=gather_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")}
+    res["sorted_gather"] = timings_gather(table, sidx32)
 
     keep = ss_kernel.last_of_run(sidx32)
     last_rows, last_vals = sidx[keep], svals[keep]
@@ -1084,9 +1244,62 @@ def timings(dev, s) -> dict:
     return res
 
 
+def timing_row(kernel, call, lib, reps: int = REPS) -> dict:
+    """A kernel's wrapper call and the library call computing the same
+    function: CUDA-event medians (``ms``, ``library_ms``), and from a
+    ``torch.profiler`` trace the device time per call, the device launches
+    per call and the kernels by name, with the route they name."""
+    trace, lib_trace = device_trace(call), device_trace(lib)
+    return dict(
+        ms=time_ms(call, reps), device_ms=trace["ms"],
+        device_launches_per_call=trace["launches"],
+        device_kernels=trace["by_kernel"], route=routes_taken(kernel, trace),
+        library_ms=time_ms(lib, reps), library_device_ms=lib_trace["ms"],
+        library_device_launches_per_call=lib_trace["launches"])
+
+
+def timings_gather(table, sidx32) -> dict:
+    """Phase 5, B2 at the scheduler path's batch (the sorted Zipf ids) and
+    at the serve path's embedding lookup (8 x 1024 uniform ids, sorted):
+    the wrapper, its launch alone (``kernel_only_ms``: the wrapper's range
+    check, one host sync, is the difference), its plain version and
+    ``index_select``, beside the bound: the indices read, each distinct
+    row read once, every slot's row written once; and a fill of the
+    output's bytes (``output_fill_ms``), the card's time for the writes
+    alone."""
+    rows, d = table.shape
+    rb = d * table.element_size()
+    gen = torch.Generator(device=table.device).manual_seed(SEED + 4)
+    lookup = torch.sort(torch.randint(0, rows, (BATCH * SERVE_PROMPT,),
+                                      generator=gen, device=table.device,
+                                      dtype=torch.int32)).values
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    res = {}
+    for name, idx in ((f"{sidx32.numel()}x{d}", sidx32),
+                      (f"{lookup.numel()}x{d} uniform (serve lookup)",
+                       lookup)):
+        n = idx.numel()
+        distinct = int(torch.unique_consecutive(idx).numel())
+        out = torch.empty((n, d), dtype=table.dtype, device=table.device)
+        raw = lambda: sg_kernel.LIB.launch(
+            "gather_rows", table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            n, rb, stream)
+        res[name] = dict(
+            timing_row("sorted_gather",
+                       lambda: sg_kernel.gather_rows(table, idx),
+                       lambda: torch.index_select(table, 0, idx)),
+            kernel_only_ms=time_ms(raw),
+            output_fill_ms=time_ms(lambda: out.zero_()),
+            plain_ms=time_ms(lambda: sg_kernel.gather_rows_plain(table, idx)),
+            bound_ms=(4 * n + (distinct + n) * rb) / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", distinct_rows=distinct)
+    return res
+
+
 def timings_bulk(dev, b) -> dict:
     """Phase 5, B4: ``bulk_read`` and ``bulk_write`` (the whole function,
-    which returns a new KV cache, and its in-place staged copy)."""
+    which returns a new KV cache, and its in-place staged copy), each with
+    its library call: ``clone()``, and ``clone()`` then ``copy_``."""
     cfg = PAPER_EVAL_CONFIG.dma
     w, kv, layer_kv, offset = b["w"], b["kv"], b["layer_kv"], b["offset"]
     n = layer_kv.numel()
@@ -1101,28 +1314,30 @@ def timings_bulk(dev, b) -> dict:
     region = kv.clone().view(-1)[offset:offset + n]
     src = layer_kv.reshape(-1)
     chunk = dc_ops.chunk_elems(cfg, 2)
+    inplace = lambda: dc_kernel.staged_copy(
+        region, src, chunk_elems=chunk, channels=cfg.num_parallel_dma)
+    inplace_trace = device_trace(inplace)
     write = dict(
-        ms=time_ms(lambda: dma_engine.bulk_write(
-            kv, layer_kv, config=cfg, offset_elems=offset, use_kernels=True)),
+        timing_row("dma_copy", lambda: dma_engine.bulk_write(
+            kv, layer_kv, config=cfg, offset_elems=offset, use_kernels=True),
+            library_write),
         plain_ms=time_ms(lambda: dma_engine.bulk_write(
             kv, layer_kv, config=cfg, offset_elems=offset,
             use_kernels=False)),
-        library_ms=time_ms(library_write),
         # The cache outside the region and the layer read once, the new
         # cache written once: twice the cache's bytes.
         bound_ms=2 * kv_bytes / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes",
-        inplace_ms=time_ms(lambda: dc_kernel.staged_copy(
-            region, src, chunk_elems=chunk, channels=cfg.num_parallel_dma)),
+        inplace_ms=time_ms(inplace), inplace_device_ms=inplace_trace["ms"],
+        inplace_route=routes_taken("dma_copy", inplace_trace),
         inplace_plain_ms=time_ms(lambda: dc_kernel.staged_copy_plain(
             region, src)),
         inplace_bound_ms=2 * layer_bytes / HBM_BYTES_PER_S * 1e3)
     read = dict(
-        ms=time_ms(lambda: dma_engine.bulk_copy(w, config=cfg,
-                                                use_kernels=True)),
+        timing_row("dma_copy", lambda: dma_engine.bulk_copy(
+            w, config=cfg, use_kernels=True), lambda: w.clone()),
         plain_ms=time_ms(lambda: dma_engine.bulk_copy(w, config=cfg,
                                                       use_kernels=False)),
-        library_ms=time_ms(lambda: w.clone()),
         bound_ms=2 * w_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
     return {f"bulk_read {'x'.join(map(str, FFN_SHAPE))}": read,
             f"bulk_write {'x'.join(map(str, KV_SHAPE[1:]))} into "
@@ -1191,11 +1406,11 @@ def run(dev) -> None:
                 print(f"  ptxas[{name}]: {line.strip()}", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    errs, mixed = check_kernels(dev, gen)
+    errs, mixed, routes = check_kernels(dev, gen)
     attn = check_attention(dev, gen)
     errs["flash_attention"] = max(r["max_abs_err"] for r in attn.values())
     say(phase="kernels_vs_plain", max_abs_err=errs, mixed_add=mixed,
-        flash_attention=attn)
+        routes=routes, flash_attention=attn)
 
     s = run_slice(dev, gen)
     say(phase="slice", path="scheduler", seconds=s["slice_s"],
@@ -1203,6 +1418,7 @@ def run(dev) -> None:
         hot_hits=s["hot_hits"], add_max_bf16_ulps=s["add_ulps"],
         add_f32=s["add32"],
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    say(phase="plain_add_repeats", **check_plain_add(dev, s))
     b = run_bulk(dev, gen)
     say(phase="slice", path="bulk", seconds=b["seconds"],
         launches=b["launches"],
@@ -1217,6 +1433,12 @@ def run(dev) -> None:
 
     t = timings(dev, s)
     t["dma_copy"] = timings_bulk(dev, b)
+    # The TMA routes ran at the scheduler and bulk paths' shapes.
+    for name in ("sorted_gather", "dma_copy"):
+        for shape, row in t[name].items():
+            for key in ("route", "inplace_route"):
+                assert row.get(key, ["tma"]) == ["tma"], \
+                    f"{name} {shape}: {key} {row[key]}"
     t["cache_lookup"] = timings_cache(dev, c)
     t["flash_attention"] = timings_attention(dev, gen)
     for name, shapes in t.items():

@@ -1,0 +1,78 @@
+#!/usr/bin/env python3
+"""Time the gather (B2) and the DMA copy (B4) at the main paths' shapes,
+as ``chip_smoke.py`` times them, for one version of the port, so that two
+versions can be compared on one card.
+
+    python3 kernel_repeat.py [--src DIR]
+
+``--src`` is the ``src`` directory whose ``repro_torch`` is timed (by
+default this checkout's; another checkout's, e.g. an unpacked parent
+commit, to compare). The timings are ``chip_smoke.py``'s own
+(``timings_gather``, ``timings_bulk``), run on that package: the wrapper's
+CUDA-event median, the device time and launches per call from
+``torch.profiler``, the library call's, the plain version's, the bound.
+One process times one version: run it once per version, alternating
+versions (A, B, B, A) on one machine. Needs one CUDA device;
+builds that version's kernels first.
+
+Prints the card's name and power limit, then one JSON line per kernel and
+shape.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"))
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
+    import torch
+    import repro_torch
+    # Imported after the package, so that its timing functions run on the
+    # version loaded from --src.
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("kernel_repeat: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    _build.build()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    table = torch.randn((cs.VOCAB, cs.D_MODEL), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+    idx = torch.from_numpy(cs.prefill_ids()).to(dev).reshape(-1)
+    rows = {"sorted_gather": cs.timings_gather(
+        table, torch.sort(idx).values.to(torch.int32))}
+    del table
+    w = torch.randn(cs.FFN_SHAPE, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    kv = torch.randn(cs.KV_SHAPE, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    layer_kv = torch.randn(cs.KV_SHAPE[1:], generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    rows["dma_copy"] = cs.timings_bulk(dev, dict(
+        w=w, kv=kv, layer_kv=layer_kv,
+        offset=cs.KV_LAYER * layer_kv.numel()))
+    for kernel, shapes in rows.items():
+        for shape, row in shapes.items():
+            print(json.dumps(dict(package=os.path.dirname(
+                repro_torch.__file__), kernel=kernel, shape=shape, **row)),
+                  flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

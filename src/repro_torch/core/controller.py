@@ -193,9 +193,13 @@ class MemoryController:
         idx = indices.reshape(-1)
         vals = values.reshape(idx.shape[0], table.shape[-1])
         if mode == "add":
-            acc = torch.promote_types(torch.float32, table.dtype)
-            return table.to(acc, copy=True).index_add_(
-                0, idx, vals.to(acc)).to(table.dtype)
+            # Each row's addends summed as one run, in arrival order, and
+            # the row written once: the same bits on every call and device
+            # (``index_add_`` on CUDA adds duplicates with atomics, in an
+            # order that changes from call to call). The stable sort only
+            # groups the runs; no kernel runs.
+            return sorted_scatter(table, idx, vals, mode="add",
+                                  use_kernels=False)
         return scatter_set_last(table, idx, vals)
 
     def cached_scatter(

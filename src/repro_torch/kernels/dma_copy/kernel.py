@@ -2,11 +2,13 @@
 
 ``staged_copy(dst, src, chunk_elems=..., channels=...)`` writes the flat
 payload ``src`` into ``dst`` chunk by chunk through ``channels`` staging
-slots, the paper's parallel DMA buffers. On a CUDA tensor it launches the
-kernel of ``csrc/dma_copy.cu`` (cp.async into shared memory, up to
-``channels`` copies in flight, the ragged last chunk masked); on a CPU
-tensor it runs ``staged_copy_plain``, ``dst.copy_(src)``: the staging
-changes no value. Counterpart of ``repro.kernels.dma_copy.kernel``.
+slots, the paper's parallel DMA buffers. On a CUDA tensor it launches a
+kernel of ``csrc/dma_copy.cu``, chosen there by alignment: a ring of TMA
+bulk copies where both addresses, the chunk and the total are 16-byte
+aligned, cp.async otherwise (up to ``channels`` copies in flight either
+way, the ragged last chunk masked); on a CPU tensor it runs
+``staged_copy_plain``, ``dst.copy_(src)``: the staging changes no value.
+Counterpart of ``repro.kernels.dma_copy.kernel``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 from repro_torch.kernels._build import I32, I64, P, CudaLibrary
 
-LIB = CudaLibrary("dma_copy", {"dma_copy": (P, P, I64, I64, I32, P)})
+LIB = CudaLibrary("dma_copy", {"dma_copy": (P, P, I64, I64, I32, I32, P)})
 MAX_CHANNELS = 8
 
 
@@ -59,6 +61,6 @@ def staged_copy(dst: torch.Tensor, src: torch.Tensor, *, chunk_elems: int,
         return dst
     item = src.element_size()
     LIB.launch("dma_copy", dst.data_ptr(), src.data_ptr(), src.numel() * item,
-               chunk_elems * item, channels,
+               chunk_elems * item, channels, dst.device.index,
                torch.cuda.current_stream(dst.device).cuda_stream)
     return dst

@@ -1,9 +1,11 @@
 """Sorted-gather — the scheduler's locality payoff.
 
 ``gather_rows(table, sorted_idx)`` returns ``table[sorted_idx]``. On a
-CUDA tensor it launches the kernel of ``csrc/sorted_gather.cu`` (one block
-per slot, widest aligned row copy); on a CPU tensor it runs
-``gather_rows_plain``, an ``index_select``. Counterpart of
+CUDA tensor it launches the kernel of ``csrc/sorted_gather.cu``: each
+block owns a span of consecutive slots, reads each run's row once into
+shared memory and stores it to every slot of the run (TMA bulk stores
+where the row pitch and both bases are 16-byte aligned); on a CPU tensor
+it runs ``gather_rows_plain``, an ``index_select``. Counterpart of
 ``repro.kernels.sorted_gather.kernel``.
 """
 

@@ -15,17 +15,20 @@ def coalesce_add_runs(table: torch.Tensor, sidx: torch.Tensor,
     Returns per-slot values ``table[row] + Σ(run values)``, so flushing
     any one slot of a run — in particular the last one — accumulates
     exactly like the in-order stream. Sums are taken *per run* (a segment
-    sum keyed on the run-start index) in at least float32 — float64
-    tables accumulate in float64 — with no global prefix accumulation, so
-    a short run's sum stays accurate in million-row batches. On the CPU
-    ``index_add_`` adds in slot order; on CUDA its order varies, within
-    float reassociation.
+    sum over the runs' lengths) in at least float32 — float64 tables
+    accumulate in float64 — with no global prefix accumulation, so a short
+    run's sum stays accurate in million-row batches. Each run is summed in
+    slot order, without atomics, so a call gives the same bits every time,
+    on the CPU and on CUDA (``index_add_`` on CUDA adds duplicates with
+    atomics, in an order that changes from call to call).
     """
     acc = torch.promote_types(torch.float32, table.dtype)
-    starts = torch.searchsorted(sidx, sidx, side="left")
-    totals = svals.new_zeros(svals.shape, dtype=acc).index_add_(
-        0, starts, svals.to(acc))
-    run_sum = totals.index_select(0, starts)
+    if sidx.numel() == 0:
+        return svals.to(table.dtype)
+    _, run_of, lengths = torch.unique_consecutive(
+        sidx, return_inverse=True, return_counts=True)
+    totals = torch.segment_reduce(svals.to(acc), "sum", lengths=lengths)
+    run_sum = totals.index_select(0, run_of)
     # The base-row add also happens in the accumulator dtype — rounding
     # to the table dtype exactly once, same as the unscheduled reference.
     return (table.index_select(0, sidx).to(acc) + run_sum).to(table.dtype)

@@ -291,3 +291,40 @@ def test_property_identity_table(ids, mode, engines, use_kernels):
     got = tmc.scatter(table, idx, vals, mode=mode)
     torch.testing.assert_close(got, scatter_ref(table, idx, vals, mode),
                                rtol=1e-5, atol=1e-5)
+
+
+def _hot_run_inputs(dtype, seed=7, rows=300, d=16, n=1500, hot=900):
+    """Unsorted ids with one hot row of ``hot`` slots among short runs."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, rows, n)
+    idx[rng.permutation(n)[:hot]] = 11
+    table = torch.from_numpy(rng.standard_normal((rows, d))).to(dtype)
+    vals = torch.from_numpy(rng.standard_normal((n, d))).to(dtype)
+    return table, torch.from_numpy(idx.astype(np.int32)), vals
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sched", [True, False])
+def test_plain_add_repeats_its_bits(sched, dtype):
+    """The plain ``add`` (kernels off), scheduled or not, gives the same
+    bits in two calls, on a batch with a hot row of 900 slots."""
+    _, tmc = _pair(sched, False, use_kernels=False)
+    table, idx, vals = _hot_run_inputs(getattr(torch, dtype))
+    a = tmc.scatter(table, idx, vals, mode="add")
+    assert torch.equal(a, tmc.scatter(table, idx, vals, mode="add"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unscheduled_add_agrees_with_scheduled(dtype):
+    """With the scheduler off the plain ``add`` still sums each row's
+    addends as one run and writes the row once; it agrees with the
+    scheduled path within the tolerance of this file, and both with the
+    JAX reference's in-order write stream."""
+    on, off = (_pair(s, False, use_kernels=False)[1] for s in (True, False))
+    table, idx, vals = _hot_run_inputs(getattr(torch, dtype))
+    got_off = off.scatter(table, idx, vals, mode="add")
+    got_on = on.scatter(table, idx, vals, mode="add")
+    _assert_scatter_close(got_off, got_on, "add", dtype)
+    jt, jv = (jnp.asarray(_f32(x)).astype(dtype) for x in (table, vals))
+    want = jscatter_ref(jt, jnp.asarray(idx.numpy()), jv, "add")
+    _assert_scatter_close(got_off, want, "add", dtype)

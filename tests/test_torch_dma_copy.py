@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro.core.config import DMAConfig as JDMAConfig
+from repro.kernels.dma_copy import kernel as jkernel
 from repro.kernels.dma_copy.ops import dma_copy as jdma_copy
 from repro_torch import convert
 from repro_torch.core import dma_engine as tdma
@@ -123,3 +124,50 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     dst, src, kw = _bad(case)
     with pytest.raises(ValueError):
         tkernel.staged_copy(dst, src, **kw)
+
+
+@pytest.mark.parametrize("chunk_elems,channels", [(1, 1), (3, 4), (7, 8),
+                                                  (131072, 4)])
+@pytest.mark.parametrize("n", [1000, 1003])
+def test_staged_copy_of_any_chunk_and_total(chunk_elems, channels, n, rng):
+    """Chunks under 16 bytes (on the card the cp.async route), a chunk of
+    256 KB (the Table I maximum), totals that are and are not a multiple
+    of the chunk and of 16 bytes, one to eight channels: the copy is the
+    source, bit for bit, and agrees with the JAX Pallas kernel on the
+    chunked layout where the chunk divides the total."""
+    src = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        torch.bfloat16)
+    got = tkernel.staged_copy(torch.empty_like(src), src,
+                              chunk_elems=chunk_elems, channels=channels)
+    np.testing.assert_array_equal(_bits(got), _bits(src))
+    if n % chunk_elems == 0:
+        x = jnp.asarray(src.float().numpy()).astype(jnp.bfloat16)
+        want = jkernel.dma_copy_chunked(x.reshape(-1, chunk_elems),
+                                        channels=channels)
+        np.testing.assert_array_equal(_bits(got), _bits(want.reshape(-1)))
+
+
+@pytest.mark.parametrize("src_off,dst_off", [(1, 0), (0, 1), (1, 3), (8, 8)])
+def test_staged_copy_between_misaligned_views(src_off, dst_off, rng):
+    """Source and destination views at element offsets that leave them
+    2-byte aligned (a bulk write at an odd bf16 offset) or 16-byte
+    aligned: the destination region is the source, and nothing around it
+    changes."""
+    n = 777
+    sbuf = torch.from_numpy(rng.standard_normal(n + 8).astype(
+        np.float32)).to(torch.bfloat16)
+    dbuf = torch.zeros(n + 8, dtype=torch.bfloat16)
+    src, dst = sbuf[src_off:src_off + n], dbuf[dst_off:dst_off + n]
+    tkernel.staged_copy(dst, src, chunk_elems=128, channels=4)
+    assert torch.equal(dbuf[dst_off:dst_off + n], src)
+    assert not dbuf[:dst_off].any() and not dbuf[dst_off + n:].any()
+
+
+def test_staged_copy_of_nothing():
+    """An empty payload copies nothing and returns ``dst`` (the kernel is
+    never launched for it on the card)."""
+    dst, src = torch.zeros(0, dtype=torch.bfloat16), torch.zeros(
+        0, dtype=torch.bfloat16)
+    out = tkernel.staged_copy(dst, src, chunk_elems=128, channels=4)
+    assert out is dst and out.shape == (0,)
+    assert tkernel.LIB.launches == 0

@@ -74,7 +74,7 @@ def test_no_module_imports_jax_or_the_reference_package():
 
 def test_no_source_names_jax_or_the_reference_package():
     for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
-                 ROOT / "serve_repeat.py"]:
+                 ROOT / "serve_repeat.py", ROOT / "kernel_repeat.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -235,3 +235,38 @@ def test_serve_repeat_fails_without_a_gpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert "prefill_s" not in res.stdout
+
+
+def test_kernel_repeat_fails_without_a_gpu():
+    """``kernel_repeat.py`` exits non-zero and times nothing where
+    ``torch.cuda.is_available()`` is false."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, str(ROOT / "kernel_repeat.py")],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode != 0
+    assert '"kernel"' not in res.stdout
+
+
+def test_kernel_repeat_times_the_package_it_is_given(tmp_path):
+    """``--src`` decides which ``repro_torch`` ``chip_smoke.py``'s timing
+    functions run on, though ``chip_smoke`` puts this checkout's ``src``
+    first on the path when it is imported."""
+    other = tmp_path / "src"
+    shutil.copytree(PKG, other / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(other)!r})\n"
+        f"sys.path.insert(1, {str(ROOT)!r})\n"
+        "import repro_torch\n"
+        "import chip_smoke\n"
+        "from repro_torch.kernels.sorted_gather import kernel\n"
+        "print(chip_smoke.sg_kernel is kernel, kernel.__file__)\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = _run(code, env=env)
+    assert res.returncode == 0, res.stderr
+    same, where = res.stdout.split()
+    assert same == "True" and where.startswith(str(other))

@@ -246,3 +246,47 @@ def test_property_duplicate_heavy_ids_match_write_stream(ids, mode):
                                rtol=1e-5, atol=1e-5)
     if mode == "set":
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _hot_run_batch(seed=5, n_short=700, hot=5000, rows=512, d=24,
+                   dtype=torch.float32):
+    """A sorted batch with one run of ``hot`` slots among short runs (the
+    hot token of an embedding-gradient batch), its table and values."""
+    rng = np.random.default_rng(seed)
+    idx = np.concatenate([rng.integers(0, rows, n_short),
+                          np.full(hot, rows // 3)])
+    sidx = torch.from_numpy(np.sort(idx, kind="stable").astype(np.int64))
+    table = torch.from_numpy(rng.standard_normal((rows, d))).to(dtype)
+    vals = torch.from_numpy(rng.standard_normal((idx.size, d))).to(dtype)
+    return table, sidx, vals
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", ["hot_run", "short_runs"])
+def test_coalesce_add_runs_repeats_its_bits(dtype, batch):
+    """The plain ``add`` sums each run with a segment sum in slot order, no
+    atomics: two calls give the same bits, with one 5000-slot run among
+    short runs and with short runs alone."""
+    table, sidx, vals = _hot_run_batch(
+        dtype=dtype, hot=5000 if batch == "hot_run" else 0)
+    a = tcoalesce.coalesce_add_runs(table, sidx, vals)
+    b = tcoalesce.coalesce_add_runs(table, sidx, vals)
+    assert a.dtype == dtype and torch.equal(a, b)
+    got = tkernel.scatter_rows_plain(table, sidx, vals, mode="add")
+    assert torch.equal(got, tkernel.scatter_rows_plain(table, sidx, vals,
+                                                       mode="add"))
+
+
+def test_coalesce_add_runs_is_a_float32_per_run_sum():
+    """Each slot's value is ``table[row] + Σrun`` summed in float32: within
+    float32 reassociation of the float64 per-run sum, that is (run length
+    + 1) · eps of the magnitudes summed, also for the 5000-slot run."""
+    table, sidx, vals = _hot_run_batch()
+    got = tcoalesce.coalesce_add_runs(table, sidx, vals).double()
+    t64, v64, s = table.double(), vals.double(), sidx.numpy()
+    for row in np.unique(s):
+        run = np.flatnonzero(s == row)
+        want = t64[row] + v64[run].sum(0)
+        mag = t64[row].abs() + v64[run].abs().sum(0)
+        bound = (run.size + 1) * np.finfo(np.float32).eps * mag
+        assert bool(((got[run] - want).abs() <= bound).all()), row
