@@ -16,8 +16,10 @@ Phases (a failing phase raises and the script exits non-zero):
    the DMA copy and the cache probe must be bit-equal (the probe over its
    whole trajectory: hits, ways, tags, valid bits, ages, clock), ``add``
    within float32 reassociation (rtol = atol = 1e-5) for float32 and
-   float64 tables and within one bf16 or f16 ulp for those; float32
-   values summed into a bf16 or f16 table are held by ``check_mixed_add``;
+   float64 tables; an ``add`` into a bf16 or f16 table is held by
+   ``check_mixed_add``; B3's span route (runs longer than its span) also
+   on one run of 32768 slots and on runs of one span, one span and one
+   slot and two spans, every case repeating its bits in a second call;
    flash attention (B6) by ``check_attention``: float32 inputs (the
    CUDA-core kernel) within the reference's rtol = atol = 3e-5; bf16 and
    f16 inputs (the tensor-core kernel) bit-equal to the same kernel's
@@ -25,6 +27,8 @@ Phases (a failing phase raises and the script exits non-zero):
    within 3e-5 of the plain float32 result (at the serve path's shape,
    windows, bidirectional hd 80, MQA, ragged S, S = 1). The sort also at
    N equal to its default chunk, twice it and eight times it, G > 1. The
+   probe also with one hot set at the Table I shape, from tied ages and
+   with 32768 sets (int32 sort keys in its grouping). The
    gather also at the serve lookup's shape, one run of 40000, runs across
    its spans, each access width and a misaligned table view; the DMA copy
    at one to eight channels, ragged totals, chunks under 16 bytes and of
@@ -71,13 +75,16 @@ Phases (a failing phase raises and the script exits non-zero):
    of the kernel's wrapper, its plain version and one PyTorch library
    call computing the same function (none for the cache probe: no
    PyTorch call runs an LRU), beside the least time the card could take
-   (bytes over 3.35 TB/s, or operations over the peak rate). For the
-   sort, the gather, the DMA copy and attention also the kernel's and the
-   library call's device time per call from ``torch.profiler`` (the
-   wrapper's time includes the host's); the sort's device launches per
-   call, counted in that trace and held to its launch plan, and also at
-   three other chunks; the gather's and the DMA copy's device launches
-   per call and routes, which must be the TMA ones at these shapes.
+   (bytes over 3.35 TB/s, or operations over the peak rate). For every
+   kernel also its and the library call's device time per call from
+   ``torch.profiler`` (the wrapper's time includes the host's) and the
+   device launches per call counted in that trace; the sort's held to its
+   launch plan, and also at three other chunks; the gather's and the DMA
+   copy's routes, which must be the TMA ones at these shapes; the
+   scatter's route (the span route for ``add`` at this batch) and its own
+   kernels' device time without the table's clone; the cache probe's
+   kernel alone. The cache path also counts the probe's and
+   ``cache_service``'s host syncs (the probe must make one).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -95,6 +102,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -190,7 +198,12 @@ SERVE_ATTN_ULPS = 2.0
 ROUTES = {"sorted_gather": {"gather_rows_tma_kernel": "tma",
                             "gather_rows_vec_kernel": "vec"},
           "dma_copy": {"dma_copy_tma_kernel": "tma",
-                       "dma_copy_cp_async_kernel": "cp_async"}}
+                       "dma_copy_cp_async_kernel": "cp_async"},
+          # B3's add: a batch with a run longer than SPAN takes the span
+          # route (its short runs still go one pass); any other, one pass.
+          "sorted_scatter": {"scatter_add_span_kernel": "span",
+                             "scatter_add_fold_kernel": "span",
+                             "scatter_add_runs_kernel": "one_pass"}}
 WARMUP, REPS = 3, 20
 
 
@@ -218,9 +231,10 @@ def time_ms(fn, reps: int = REPS) -> float:
 def device_trace(fn, reps: int = 10, tries: int = 3) -> dict:
     """What ``torch.profiler`` records on the card over ``reps`` calls,
     after warm-up, per call: ``ms``, the kernels' summed durations (None
-    where it records no device time), ``launches``, the device events, and
+    where it records no device time), ``launches``, the device events,
     ``by_kernel``, those launches by kernel name (its part before any
-    argument list). A trace with no device event at all is taken again,
+    argument list), and ``ms_by_kernel``, their durations by the same
+    names. A trace with no device event at all is taken again,
     up to ``tries`` times: the profiler has returned an empty trace for
     calls that did launch (once in about 30 traces on the H100)."""
     for _ in range(WARMUP):
@@ -238,9 +252,23 @@ def device_trace(fn, reps: int = 10, tries: int = 3) -> dict:
             break
     us = sum(e.device_time_total for e in events)
     by_kernel = collections.Counter(e.name.split("(")[0] for e in events)
+    us_by_kernel = collections.Counter()
+    for e in events:
+        us_by_kernel[e.name.split("(")[0]] += e.device_time_total
     return dict(ms=us / reps / 1e3 if us > 0 else None,
                 launches=len(events) / reps,
-                by_kernel={k: n / reps for k, n in by_kernel.items()})
+                by_kernel={k: n / reps for k, n in by_kernel.items()},
+                ms_by_kernel={k: t / reps / 1e3
+                              for k, t in us_by_kernel.items()})
+
+
+def kernels_ms(trace: dict, prefix: str):
+    """Device ms per call of the kernels in ``trace`` whose names start
+    with ``prefix`` (a kernel's own launches, without the wrapper's clone
+    or checks), or None where the trace holds none."""
+    ms = [t for k, t in trace["ms_by_kernel"].items()
+          if k.removeprefix("void ").startswith(prefix)]
+    return sum(ms) if ms else None
 
 
 def routes_taken(kernel: str, trace: dict) -> list:
@@ -255,14 +283,35 @@ def route_of(kernel: str, fn, tries: int = 3) -> str:
     """The one route that ``fn``'s launches of ``kernel`` took. A trace
     that names none of the kernel's routes is taken again, up to ``tries``
     times: the profiler has dropped the one kernel of a trace on the
-    H100."""
+    H100. B3's ``add`` is on the span route where a span kernel ran, its
+    short runs going one pass beside it."""
     for _ in range(tries):
         trace = device_trace(fn, reps=1)
         taken = routes_taken(kernel, trace)
         if taken:
             break
+    if kernel == "sorted_scatter" and "span" in taken:
+        taken = ["span"]
     assert len(taken) == 1, f"{kernel}: routes {taken} in {trace}"
     return taken[0]
+
+
+def host_syncs(fn) -> list:
+    """Where ``fn`` makes a synchronizing CUDA call (a host wait on the
+    device), as torch's sync debug mode reports them: one ``file:line``
+    each. Other warnings (the mode announces itself as a prototype once a
+    process) are not counted."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -429,7 +478,8 @@ def check_dma(dev, gen) -> dict:
 
 def check_cache(dev) -> None:
     """B5, the cache probe, against its plain version over the whole
-    trajectory: hits, ways, tags', valid', age' and clock'."""
+    trajectory: hits, ways, tags', valid', age' and clock'; at the Table I
+    shape also with one hot set and from states whose ages tie."""
     rng = np.random.default_rng(SEED + 3)
     names = ("hits", "ways", "tags", "valid", "age", "clock")
 
@@ -456,6 +506,28 @@ def check_cache(dev) -> None:
         # A stream that hammers one set: 40 tags of set 7, in random order.
         sets = cfg.num_sets
         both(7 + sets * rng.integers(0, 40, 6000), empty(cfg))
+    # The Table I stream with one hot set: every 16th beat goes to set 5
+    # (one of 40 tags), 7168 beats on one warp. Then ties: the stream from
+    # a state whose ages are all INT_MAX (as the lanes past the ways are),
+    # and from one whose ages repeat among 0, 1 and 2.
+    sets = CACHE_CFG.num_sets
+    hot = main.copy()
+    hot[::16] = 5 + sets * rng.integers(0, 40, hot[::16].size)
+    both(hot, empty(CACHE_CFG))
+    tags, valid, age, clock = empty(CACHE_CFG)
+    tags = torch.from_numpy(rng.integers(0, 40, tuple(tags.shape)).astype(
+        np.int32)).to(dev)
+    valid = torch.from_numpy(rng.integers(0, 2, tuple(tags.shape)).astype(
+        np.int32)).to(dev)
+    both(main, (tags, valid, torch.full_like(age, np.iinfo(np.int32).max),
+                clock))
+    both(main, (tags, valid, torch.from_numpy(rng.integers(
+        0, 3, tuple(tags.shape)).astype(np.int32)).to(dev), clock + 5))
+    # 32768 sets (Table I's most lines, direct-mapped): more than int16
+    # sort keys hold, so the grouping sorts int32 keys.
+    many = CacheConfig(line_width_bits=512, num_lines=32768,
+                       associativity=1)
+    both(rng.integers(0, 4 * many.num_sets, 20000), empty(many))
 
 
 def check_kernels(dev, gen):
@@ -557,7 +629,9 @@ def check_kernels(dev, gen):
     del big, gathers
 
     # B3: set bit-equal; add within the stated tolerance; first at the main
-    # path's shape, where a hot token's run is thousands of rows long.
+    # path's shape, where a hot token's run is thousands of rows long. The
+    # span route sums a long run in another order than the plain version's
+    # slot-order sum, so a bf16 or f16 table is held by check_mixed_add.
     for dtype, rows, d, n, hi in [(torch.bfloat16, VOCAB, D_MODEL, n_main,
                                    "zipf"),
                                   (torch.bfloat16, 4096, D_MODEL, 8192, 512),
@@ -584,7 +658,13 @@ def check_kernels(dev, gen):
             want = ss_kernel.scatter_rows_plain(table, sidx, vals, mode="add")
         err = float((got.double() - want.double()).abs().max())
         if dtype in (torch.bfloat16, torch.float16):
-            assert ulps(got, want) <= 1.0, f"scatter add {dtype} > 1 ulp"
+            t32 = table.float()
+            with deterministic():
+                want32 = ss_kernel.scatter_rows_plain(t32, sidx, vals,
+                                                      mode="add")
+            mixed[f"{dtype} -> {dtype} {rows}x{d} n={n}"] = check_mixed_add(
+                got, want, ss_kernel.scatter_rows(t32, sidx, vals,
+                                                  mode="add"), want32)
         else:
             assert torch.allclose(got, want, rtol=1e-5, atol=1e-5), \
                 f"scatter add {dtype}"
@@ -623,10 +703,124 @@ def check_kernels(dev, gen):
         errs["sorted_scatter"] = max(errs["sorted_scatter"], float(
             (got.double() - want.double()).abs().max()))
     dma_routes = check_dma(dev, gen)
-    check_cache(dev)
     errs["dma_copy"] = errs["cache_lookup"] = 0.0   # bit-equal, asserted
     torch.cuda.synchronize()
     return errs, mixed, dict(sorted_gather=gather_routes, dma_copy=dma_routes)
+
+
+def check_scatter_spans(dev, gen) -> dict:
+    """B3 ``add`` on its span route: the main path's Zipf batch (hot run
+    4566 slots), one run of all 32768 slots, and runs of SPAN, SPAN + 1,
+    2 SPAN slots among short runs, each with bf16 and float32 values into
+    a bf16 table, float64 values into a float64 table and int32 values
+    into an int32 table. Each result is held to the plain version (bf16:
+    ``check_mixed_add``; float64: rtol = atol = 1e-5; int32: equal), gives
+    the same bits in a second call, and comes from the span route, named
+    in the profiler's trace; the plan the kernel read is ``span_plan_plain``'s.
+    The single run's values are multiples of 1/16 below 8 in magnitude, so
+    every float32 sum of it is exact in any order: the plain version sums
+    32768 rows one after another, whose float32 rounding alone exceeds the
+    tolerance; its error and the kernel's against float64 on normal values
+    are reported. The other batches' float values are normal, at the
+    main path's gradient scale (1e-2). Also counts the wrapper's host
+    syncs (one)."""
+    rng = np.random.default_rng(SEED + 5)
+    span, n_main = ss_kernel.SPAN, BATCH * SEQ
+    lengths = rng.permutation(np.concatenate([
+        np.repeat([span, span + 1, 2 * span, 2 * span + 1, 3 * span + 5], 4),
+        rng.integers(1, span, 60)]))
+    batches = [
+        ("zipf", VOCAB, D_MODEL, torch.sort(torch.from_numpy(
+            zipf_ids(rng, (n_main,))).to(dev)).values, False),
+        ("one run of 32768", 1024, D_MODEL,
+         torch.full((n_main,), 333, dtype=torch.int32, device=dev), True),
+        ("runs of S, S+1, 2S among short runs", 300, 1000, torch.from_numpy(
+            np.repeat(np.sort(rng.choice(300, lengths.size, replace=False)),
+                      lengths)).to(dev), False)]
+    out = {}
+    for name, rows, d, sidx, exact in batches:
+        idx32, plan = ss_kernel.plan_on_card(sidx, rows, runs=True)
+        want_plan = ss_kernel.span_plan_plain(sidx)
+        for field, got_f, want_f in zip(ss_kernel.SpanPlan._fields, plan,
+                                        want_plan):
+            assert torch.equal(got_f, want_f), f"span plan {name}: {field}"
+        assert torch.equal(idx32, sidx.to(torch.int32)), f"idx32 {name}"
+        for tdtype, vdtype in ((torch.bfloat16, torch.bfloat16),
+                               (torch.bfloat16, torch.float32),
+                               (torch.float64, torch.float64),
+                               (torch.int32, torch.int32)):
+            if tdtype == torch.int32:
+                table = torch.randint(-100, 100, (rows, d), generator=gen,
+                                      device=dev, dtype=torch.int32)
+                vals = torch.randint(-100, 100, (sidx.numel(), d),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)
+            else:
+                table = torch.randn((rows, d), generator=gen, device=dev,
+                                    dtype=tdtype)
+                if exact:
+                    vals = (torch.randint(-128, 128, (sidx.numel(), d),
+                                          generator=gen, device=dev)
+                            / 16).to(vdtype)
+                else:           # gradients, at the main path's scale
+                    vals = (torch.randn((sidx.numel(), d), generator=gen,
+                                        device=dev) * 1e-2).to(vdtype)
+            call = lambda: ss_kernel.scatter_rows(table, sidx, vals,
+                                                  mode="add")
+            got = call()
+            assert same_bits(got, call()), \
+                f"add {name} {vdtype}->{tdtype}: other bits on a second call"
+            route = route_of("sorted_scatter", call)
+            assert route == "span", f"add {name}: route {route}"
+            with deterministic():
+                want = ss_kernel.scatter_rows_plain(table, sidx, vals,
+                                                    mode="add")
+            key = f"{name}: {vdtype} -> {tdtype}"
+            if tdtype == torch.int32:
+                assert torch.equal(got, want), f"add {key}"
+                out[key] = dict(route=route, max_abs_err=0.0)
+            elif tdtype == torch.float64:
+                assert torch.allclose(got, want, rtol=1e-5, atol=1e-5), \
+                    f"add {key}"
+                out[key] = dict(route=route, max_abs_err=float(
+                    (got - want).abs().max()))
+            else:
+                t32 = table.float()
+                with deterministic():
+                    want32 = ss_kernel.scatter_rows_plain(t32, sidx, vals,
+                                                          mode="add")
+                out[key] = dict(route=route, **check_mixed_add(
+                    got, want, ss_kernel.scatter_rows(t32, sidx, vals,
+                                                      mode="add"), want32))
+            del table, vals, got, want
+        out[name] = dict(spans=want_plan.span_first.numel(),
+                         long_runs=want_plan.long_first.numel(),
+                         short_runs=want_plan.short_first.numel())
+    # The single run on normal values: each float32 sum's largest error
+    # against the float64 sum of the same values (reported, not held).
+    sidx = batches[1][3]
+    table = torch.randn((1024, D_MODEL), generator=gen, device=dev)
+    vals = torch.randn((n_main, D_MODEL), generator=gen, device=dev)
+    exact64 = ss_kernel.scatter_rows_plain(table.double(), sidx, vals,
+                                           mode="add")
+    with deterministic():
+        plain = ss_kernel.scatter_rows_plain(table, sidx, vals, mode="add")
+    kernel = ss_kernel.scatter_rows(table, sidx, vals, mode="add")
+    out["one run of 32768, normal float32 values: error vs float64"] = dict(
+        kernel=float((kernel.double() - exact64).abs().max()),
+        plain=float((plain.double() - exact64).abs().max()))
+    sidx = batches[0][3]
+    table = torch.randn((VOCAB, D_MODEL), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+    vals = torch.randn((n_main, D_MODEL), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    out["host_syncs"] = {
+        mode: host_syncs(lambda: ss_kernel.scatter_rows(table, sidx, vals,
+                                                        mode=mode))
+        for mode in ("add", "set")}
+    assert all(len(at) == 1 for at in out["host_syncs"].values()), \
+        out["host_syncs"]
+    return out
 
 
 def run_slice(dev, gen) -> dict:
@@ -841,8 +1035,19 @@ def run_cache(dev, table) -> dict:
     assert same_bits(new.data, data), "Data RAM != last-writer scatter"
     assert not bool(new.dirty.any()), "a read stream left a dirty way"
     per_set = np.bincount(ids_np % sets, minlength=sets)
+    # Host syncs of one call each: the probe makes one (its id-range
+    # check), and so does each of cache_service's two set scatters.
+    assert len(host_syncs(lambda: torch.ones(1, device=dev).item())) == 1, \
+        "the sync counter does not see a sync"
+    syncs = dict(
+        probe=host_syncs(lambda: cl_kernel.cache_probe(
+            ids, state.tags, state.valid.to(torch.int32), state.age,
+            state.clock)),
+        cache_service=host_syncs(lambda: cl_ops.cache_service(
+            lines_tab, ids, state)))
+    assert len(syncs["probe"]) == 1, f"cache_probe host syncs: {syncs}"
     return dict(lines_tab=lines_tab, ids=ids, state=state, launches=launches,
-                seconds=seconds, hit_rate=rate,
+                seconds=seconds, hit_rate=rate, host_syncs=syncs,
                 max_beats_per_set=int(per_set.max()))
 
 
@@ -1135,9 +1340,6 @@ def run_serve(dev) -> dict:
 def timings(dev, s) -> dict:
     """Phase 5: kernel, plain and library medians beside the bound."""
     table, sidx, svals, sgrads = s["table"], s["sidx"], s["svals"], s["sgrads"]
-    n, rows = sidx.shape[0], table.shape[0]
-    rb = table.shape[1] * table.element_size()
-    distinct = s["distinct"]
     res = {}
 
     sort = {}
@@ -1172,12 +1374,18 @@ def timings(dev, s) -> dict:
         name = f"{g}x{m}" + ("" if chunk is None else f" chunk {c}")
         # The device launches of a call, counted in the profiler's trace,
         # must be the plan's: its local and global kernels, and nothing
-        # else.
-        trace, plan = device_trace(call), bs_kernel.stage_plan(m, c)
+        # else. A trace that counts otherwise is taken again, up to three
+        # times: the profiler drops a kernel event now and then.
+        plan = bs_kernel.stage_plan(m, c)
         local = sum(kind == "local" for kind, _, _ in plan)
         want = {"local": local, "stage": len(plan) - local}
-        got = {kind: sum(x for k, x in trace["by_kernel"].items()
-                         if f"bitonic_{kind}_kernel" in k) for kind in want}
+        for _ in range(3):
+            trace = device_trace(call)
+            got = {kind: sum(x for k, x in trace["by_kernel"].items()
+                             if f"bitonic_{kind}_kernel" in k)
+                   for kind in want}
+            if got == want and trace["launches"] == len(plan):
+                break
         assert got == want and trace["launches"] == len(plan), \
             f"bitonic_sort {name}: launched {trace['by_kernel']}, plan {want}"
         if chunk is None and m <= bs_kernel.DEFAULT_CHUNK:
@@ -1198,58 +1406,19 @@ def timings(dev, s) -> dict:
     sidx32 = sidx.to(torch.int32)
     res["sorted_gather"] = timings_gather(table, sidx32)
 
-    keep = ss_kernel.last_of_run(sidx32)
-    last_rows, last_vals = sidx[keep], svals[keep]
-    scatter = {}
-    for mode, v in (("set", svals), ("add", sgrads)):
-        # The function returns a new table: read it and write it once,
-        # plus the indices, plus the winning rows (set) or every row (add).
-        val_bytes = distinct * rb if mode == "set" else n * rb
-        fn_bytes = 2 * rows * rb + 4 * n + val_bytes
-        if mode == "set":
-            lib = lambda: table.clone().index_copy_(0, last_rows, last_vals)
-        else:
-            lib = lambda: table.clone().index_add_(0, sidx, sgrads)
-        work = table.clone()
-        entry = "scatter_set_rows" if mode == "set" else "scatter_add_runs"
-        code = ss_kernel.ADD_DTYPES[table.dtype]
-        args = ((rb,) if mode == "set" else (table.shape[1], code, code))
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        inplace_bytes = 4 * n + val_bytes + (2 if mode == "add" else 1) \
-            * distinct * rb
-        scatter[mode] = dict(
-            ms=time_ms(lambda: ss_kernel.scatter_rows(table, sidx32, v,
-                                                      mode=mode)),
-            plain_ms=time_ms(lambda: ss_kernel.scatter_rows_plain(
-                table, sidx32, v, mode=mode)),
-            library_ms=time_ms(lib),
-            bound_ms=fn_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            inplace_ms=time_ms(lambda: ss_kernel.LIB.launch(
-                entry, work.data_ptr(), sidx32.data_ptr(), v.data_ptr(), n,
-                *args, stream)),
-            inplace_bound_ms=inplace_bytes / HBM_BYTES_PER_S * 1e3)
-    # The repaired add: float32 gradients into the bf16 table. The library
-    # call computes the same function at float32 and rounds once.
-    sg32 = s["sgrads32"]
-    scatter["add_f32"] = dict(
-        ms=time_ms(lambda: ss_kernel.scatter_rows(table, sidx32, sg32,
-                                                  mode="add")),
-        plain_ms=time_ms(lambda: ss_kernel.scatter_rows_plain(
-            table, sidx32, sg32, mode="add")),
-        library_ms=time_ms(lambda: table.float().index_add_(
-            0, sidx, sg32).to(table.dtype)),
-        bound_ms=(2 * rows * rb + 4 * n + sg32.numel() * 4)
-        / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
-    res["sorted_scatter"] = scatter
+    res["sorted_scatter"] = timings_scatter(
+        table, sidx32, svals, sgrads, s["sgrads32"], s["distinct"])
     return res
 
 
-def timing_row(kernel, call, lib, reps: int = REPS) -> dict:
+def timing_row(kernel, call, lib, reps: int = REPS, trace=None) -> dict:
     """A kernel's wrapper call and the library call computing the same
     function: CUDA-event medians (``ms``, ``library_ms``), and from a
-    ``torch.profiler`` trace the device time per call, the device launches
-    per call and the kernels by name, with the route they name."""
-    trace, lib_trace = device_trace(call), device_trace(lib)
+    ``torch.profiler`` trace (``trace``, or one taken here) the device
+    time per call, the device launches per call and the kernels by name,
+    with the route they name."""
+    trace = trace or device_trace(call)
+    lib_trace = device_trace(lib)
     return dict(
         ms=time_ms(call, reps), device_ms=trace["ms"],
         device_launches_per_call=trace["launches"],
@@ -1344,34 +1513,106 @@ def timings_bulk(dev, b) -> dict:
             f"{'x'.join(map(str, KV_SHAPE))}": write}
 
 
-def timings_cache(dev, c) -> dict:
-    """Phase 5, B5: the probe (wrapper: grouping by set and the kernel;
-    and the kernel alone) and ``cache_service`` at the cache path."""
+def timings_scatter(table, sidx32, svals, sgrads, sgrads32, distinct,
+                    full: bool = True) -> dict:
+    """Phase 5, B3 at the scheduler path's batch: ``set``, ``add`` of bf16
+    and of float32 gradients into the bf16 table. Each wrapper call's
+    CUDA-event median, its device time and launches per call from a
+    profiler trace, the device time of B3's own kernels in it
+    (``kernel_device_ms``: without the table's clone), the route, the
+    plain version's and the library call's time, beside the bound: the
+    function returns a new table, so the table read and written once,
+    plus the indices, plus the winning rows (``set``) or every row
+    (``add``). With ``full``, also the kernels in place without the clone
+    (``inplace_ms``: the plan, its host sync and the writes); that needs
+    this version's ``plan_on_card``, so ``kernel_repeat.py`` leaves it out
+    when it times another version."""
+    n, rows = sidx32.shape[0], table.shape[0]
+    rb = table.shape[1] * table.element_size()
+    sidx = sidx32.long()
+    keep = ss_kernel.last_of_run(sidx32)
+    last_rows, last_vals = sidx[keep], svals[keep]
+    work = table.clone() if full else None
+    res = {}
+    for name, mode, v in (("set", "set", svals), ("add", "add", sgrads),
+                          ("add_f32", "add", sgrads32)):
+        val_bytes = distinct * rb if mode == "set" else n * v.shape[1] * \
+            v.element_size()
+        if name == "set":
+            lib = lambda: table.clone().index_copy_(0, last_rows, last_vals)
+        elif name == "add":
+            lib = lambda: table.clone().index_add_(0, sidx, sgrads)
+        else:   # float32 gradients: the same function at float32, rounded once
+            lib = lambda: table.float().index_add_(0, sidx, sgrads32).to(
+                table.dtype)
+        call = lambda: ss_kernel.scatter_rows(table, sidx32, v, mode=mode)
+        trace = device_trace(call)
+        row = dict(
+            timing_row("sorted_scatter", call, lib, trace=trace),
+            kernel_device_ms=kernels_ms(trace, "scatter_"),
+            kernels_ms={k.removeprefix("void ").split("<")[0]: t
+                        for k, t in trace["ms_by_kernel"].items()
+                        if "scatter_" in k},
+            plain_ms=time_ms(lambda: ss_kernel.scatter_rows_plain(
+                table, sidx32, v, mode=mode)),
+            bound_ms=(2 * rows * rb + 4 * n + val_bytes)
+            / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        if "span" in row["route"]:
+            row["route"] = ["span"]
+        if full:
+            def inplace():
+                idx32, plan = ss_kernel.plan_on_card(sidx32, rows,
+                                                     runs=mode == "add")
+                ss_kernel.scatter_in_place(work, idx32, v, plan)
+            row["inplace_ms"] = time_ms(inplace)
+            row["inplace_bound_ms"] = (4 * n + val_bytes + (
+                2 if mode == "add" else 1) * distinct * rb) \
+                / HBM_BYTES_PER_S * 1e3
+        res[name] = row
+    return res
+
+
+def timings_cache(dev, c, full: bool = True) -> dict:
+    """Phase 5, B5 at the cache path: the probe's wrapper (grouping by set
+    on the device, the id-range check's host sync and the kernel), its
+    device time and launches per call from a profiler trace, the kernel's
+    own device time in it (``kernel_device_ms``), and ``cache_service``.
+    With ``full``, also the plain version and the kernel launched alone
+    (``kernel_only_ms``), which takes this version's grouping, so
+    ``kernel_repeat.py`` leaves them out when it times another version."""
     ids, state, lines_tab = c["ids"], c["state"], c["lines_tab"]
     args = (ids, state.tags, state.valid.to(torch.int32), state.age,
             state.clock)
     sets, ways = state.tags.shape
     n = ids.numel()
-    order, start = cl_kernel.group_by_set(ids % sets, sets)
-    order, start = order.to(torch.int32), start.to(torch.int32)
-    outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)] \
-        + [torch.empty_like(state.tags) for _ in range(3)] \
-        + [torch.empty(1, dtype=torch.int32, device=dev)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    raw = (ids.data_ptr(), order.data_ptr(), start.data_ptr(),
-           *(a.data_ptr() for a in args[1:4]), args[4].data_ptr(),
-           *(o.data_ptr() for o in outs), sets, ways, n, stream)
-    nbytes = probe_bytes(n, sets, ways)
-    return {f"probe {n} beats, {sets} sets x {ways} ways": dict(
-        ms=time_ms(lambda: cl_kernel.cache_probe(*args)),
-        plain_ms=time_ms(lambda: cl_kernel.cache_probe_plain(*args), reps=3),
+    call = lambda: cl_kernel.cache_probe(*args)
+    service = lambda: cl_ops.cache_service(lines_tab, ids, state)
+    trace, service_trace = device_trace(call), device_trace(service)
+    row = dict(
+        ms=time_ms(call), device_ms=trace["ms"],
+        device_launches_per_call=trace["launches"],
+        device_kernels=trace["by_kernel"],
+        kernel_device_ms=kernels_ms(trace, "cache_probe_kernel"),
         library_ms=None,
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        kernel_only_ms=time_ms(lambda: cl_kernel.LIB.launch(
-            "cache_probe", *raw)),
-        service_ms=time_ms(lambda: cl_ops.cache_service(lines_tab, ids,
-                                                        state)),
-        max_beats_per_set=c["max_beats_per_set"])}
+        bound_ms=probe_bytes(n, sets, ways) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        service_ms=time_ms(service), service_device_ms=service_trace["ms"],
+        max_beats_per_set=c["max_beats_per_set"])
+    if full:
+        order, start = cl_kernel.group_by_set_on_card(ids % sets, sets)
+        outs = [torch.empty(n, dtype=torch.int32, device=dev)
+                for _ in range(2)] \
+            + [torch.empty_like(state.tags) for _ in range(3)] \
+            + [torch.empty(1, dtype=torch.int32, device=dev)]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        raw = (ids.data_ptr(), order.data_ptr(), start.data_ptr(),
+               *(a.data_ptr() for a in args[1:4]), args[4].data_ptr(),
+               *(o.data_ptr() for o in outs), sets, ways, n, stream)
+        row["kernel_only_ms"] = time_ms(lambda: cl_kernel.LIB.launch(
+            "cache_probe", *raw))
+        row["plain_ms"] = time_ms(lambda: cl_kernel.cache_probe_plain(*args),
+                                  reps=3)
+    return {f"probe {n} beats, {sets} sets x {ways} ways": row}
 
 
 def main() -> int:
@@ -1407,6 +1648,8 @@ def run(dev) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs, mixed, routes = check_kernels(dev, gen)
+    check_cache(dev)
+    say(phase="scatter_spans", **check_scatter_spans(dev, gen))
     attn = check_attention(dev, gen)
     errs["flash_attention"] = max(r["max_abs_err"] for r in attn.values())
     say(phase="kernels_vs_plain", max_abs_err=errs, mixed_add=mixed,
@@ -1427,6 +1670,7 @@ def run(dev) -> None:
     say(phase="slice", path="cache", seconds=c["seconds"],
         launches=c["launches"], beats=c["ids"].numel(),
         hit_rate=c["hit_rate"], max_beats_per_set=c["max_beats_per_set"],
+        host_syncs=c["host_syncs"],
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     launches = {"scheduler": s["launches"], "bulk": b["launches"],
                 "cache": c["launches"]}

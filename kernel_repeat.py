@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Time the gather (B2) and the DMA copy (B4) at the main paths' shapes,
-as ``chip_smoke.py`` times them, for one version of the port, so that two
-versions can be compared on one card.
+"""Time the gather (B2), the scatter's ``add`` (B3), the DMA copy (B4) and
+the cache probe (B5) at the main paths' shapes, as ``chip_smoke.py`` times
+them, for one version of the port, so that two versions can be compared on
+one card.
 
     python3 kernel_repeat.py [--src DIR]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (by
 default this checkout's; another checkout's, e.g. an unpacked parent
 commit, to compare). The timings are ``chip_smoke.py``'s own
-(``timings_gather``, ``timings_bulk``), run on that package: the wrapper's
-CUDA-event median, the device time and launches per call from
-``torch.profiler``, the library call's, the plain version's, the bound.
+(``timings_gather``, ``timings_scatter``, ``timings_bulk``,
+``timings_cache``), run on that package: the wrapper's CUDA-event median,
+the device time and launches per call from ``torch.profiler`` and the
+kernel's own device time in that trace, the library call's, the plain
+version's, the bound. B3 and B5 are timed through their wrappers only
+(``full=False``), since their raw launches differ between versions.
 One process times one version: run it once per version, alternating
 versions (A, B, B, A) on one machine. Needs one CUDA device;
 builds that version's kernels first.
@@ -34,8 +38,10 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)), "src"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
+    import numpy as np
     import torch
     import repro_torch
+    from repro_torch.core import init_cache
     # Imported after the package, so that its timing functions run on the
     # version loaded from --src.
     import chip_smoke as cs
@@ -54,8 +60,25 @@ def main() -> int:
     table = torch.randn((cs.VOCAB, cs.D_MODEL), generator=gen, device=dev,
                         dtype=torch.bfloat16)
     idx = torch.from_numpy(cs.prefill_ids()).to(dev).reshape(-1)
-    rows = {"sorted_gather": cs.timings_gather(
-        table, torch.sort(idx).values.to(torch.int32))}
+    sidx32, perm = torch.sort(idx.to(torch.int32), stable=True)
+    rows = {"sorted_gather": cs.timings_gather(table, sidx32)}
+    grads32 = torch.randn((idx.numel(), cs.D_MODEL), generator=gen,
+                          device=dev) * 1e-2
+    svals = torch.randn((idx.numel(), cs.D_MODEL), generator=gen,
+                        device=dev, dtype=torch.bfloat16)
+    sgrads32 = grads32[perm]
+    rows["sorted_scatter"] = cs.timings_scatter(
+        table, sidx32, svals, sgrads32.to(torch.bfloat16), sgrads32,
+        int(torch.unique_consecutive(sidx32).numel()), full=False)
+    del svals, grads32, sgrads32
+    lines = torch.from_numpy(cs.token_lines(cs.prefill_ids()[0]).astype(
+        np.int32)).to(dev)
+    rows["cache_lookup"] = cs.timings_cache(dev, dict(
+        ids=lines, lines_tab=table.view(-1, cs.line_elems()),
+        state=init_cache(cs.CACHE_CFG, cs.line_elems(), torch.bfloat16,
+                         device=dev),
+        max_beats_per_set=int(np.bincount(
+            lines.cpu().numpy() % cs.CACHE_CFG.num_sets).max())), full=False)
     del table
     w = torch.randn(cs.FFN_SHAPE, generator=gen, device=dev,
                     dtype=torch.bfloat16)

@@ -102,7 +102,9 @@ class CudaLibrary:
 
     ``launches`` rises by one for each successful ``launch`` call — one
     per wrapper call that ran the kernel on the GPU — and nowhere else;
-    ``entry_launches[entry]`` counts the same calls per C entry (a route).
+    ``entry_launches[entry]`` counts the calls per C entry (a route),
+    also those of a wrapper's preparing entry, which it launches with
+    ``count=False`` beside the one it counts.
     """
 
     def __init__(self, name: str, entries: dict[str, tuple]):
@@ -126,14 +128,14 @@ class CudaLibrary:
         lib.error_string.restype = ctypes.c_char_p
         self._lib = lib
 
-    def launch(self, entry: str, *args) -> None:
+    def launch(self, entry: str, *args, count: bool = True) -> None:
         if self._lib is None:
             self._load()
         err = self._fns[entry](*args)
         if err:
             msg = self._lib.error_string(err).decode()
             raise RuntimeError(f"{self.name}.{entry}: CUDA error {err}: {msg}")
-        self.launches += 1
+        self.launches += count
         self.entry_launches[entry] += 1
 
     def reset_launches(self) -> None:

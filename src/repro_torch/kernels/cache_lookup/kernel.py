@@ -6,7 +6,8 @@ tags', valid', age', clock'), all int32, like the reference kernel. Beat
 ``i`` stamps age ``clock + i + 1`` and touches only its own set, so sets
 are independent. On a CUDA tensor it launches the kernel of
 ``csrc/cache_lookup.cu`` (one warp per set, the ways on lanes, after the
-beats are grouped by set); on a CPU tensor it runs ``cache_probe_plain``,
+beats are grouped by set on the device; the id-range check is the one host
+sync); on a CPU tensor it runs ``cache_probe_plain``,
 the same walk as a lockstep over the sets: at depth ``j`` every set
 serves its ``j``-th beat. Counterpart of
 ``repro.kernels.cache_lookup.kernel``.
@@ -33,6 +34,20 @@ def group_by_set(set_idx: torch.Tensor, sets: int):
     order = torch.sort(set_idx, stable=True).indices
     start = torch.zeros(sets + 1, dtype=torch.int64, device=set_idx.device)
     torch.cumsum(torch.bincount(set_idx, minlength=sets), 0, out=start[1:])
+    return order, start
+
+
+def group_by_set_on_card(set_idx: torch.Tensor, sets: int):
+    """``group_by_set`` without a host sync, as the CUDA branch groups the
+    beats: ``start`` from a search of the sorted set ids, where
+    ``torch.bincount`` waits for the device to size its output. Set ids
+    are sorted as int16 where they fit (half the radix passes of int32).
+    ``order`` is int64 and ``start`` int32 (what the kernel takes)."""
+    keys = set_idx.to(torch.int16) if sets < 1 << 15 else set_idx
+    sorted_sets, order = torch.sort(keys, stable=True)
+    start = torch.searchsorted(
+        sorted_sets, torch.arange(sets + 1, dtype=keys.dtype,
+                                  device=set_idx.device), out_int32=True)
     return order, start
 
 
@@ -102,25 +117,24 @@ def cache_probe(line_ids: torch.Tensor, tags: torch.Tensor,
     if not 0 < limit <= 1 << 31:
         raise ValueError(f"limit={limit}: need 0 < limit <= 2^31")
     n = line_ids.shape[0]
-    if n:
-        lo, hi = torch.stack(torch.aminmax(line_ids)).tolist()
-        if lo < 0 or hi >= limit:
-            raise ValueError(f"line id range [{lo}, {hi}] outside "
-                             f"[0, {limit})")
     if dev.type == "cpu":
+        _check_ids(line_ids, limit)
         return cache_probe_plain(line_ids, tags, valid, age, clock)
     sets, ways = tags.shape
-    hits = torch.zeros(n, dtype=torch.int32, device=dev)
-    out_ways = torch.zeros(n, dtype=torch.int32, device=dev)
+    hits = torch.empty(n, dtype=torch.int32, device=dev)
+    out_ways = torch.empty(n, dtype=torch.int32, device=dev)
     new = [torch.empty_like(t) for t in (tags, valid, age)]
     clock = clock.reshape(1).contiguous()
     if n == 0:
         for dst, src in zip(new, (tags, valid, age)):
             dst.copy_(src)
         return (hits, out_ways, *new, clock.clone())
+    # Launched before the id-range check, which then waits for them in the
+    # one host sync: torch's % is a floor mod, so every beat's set is in
+    # range whatever its id, and the kernel touches memory only by set and
+    # beat. An id out of range raises and the outputs are dropped.
     lids = line_ids.to(torch.int32).contiguous()
-    order, start = group_by_set(lids % sets, sets)
-    order, start = order.to(torch.int32), start.to(torch.int32)
+    order, start = group_by_set_on_card(lids % sets, sets)
     new_clock = torch.empty_like(clock)
     LIB.launch("cache_probe", lids.data_ptr(), order.data_ptr(),
                start.data_ptr(), tags.data_ptr(), valid.data_ptr(),
@@ -128,4 +142,15 @@ def cache_probe(line_ids: torch.Tensor, tags: torch.Tensor,
                out_ways.data_ptr(), *(t.data_ptr() for t in new),
                new_clock.data_ptr(), sets, ways, n,
                torch.cuda.current_stream(dev).cuda_stream)
+    _check_ids(line_ids, limit)
     return (hits, out_ways, *new, new_clock)
+
+
+def _check_ids(line_ids: torch.Tensor, limit: int) -> None:
+    """Raise ``ValueError`` unless every id is in ``[0, limit)`` — one host
+    sync."""
+    if line_ids.numel():
+        lo, hi = torch.stack(torch.aminmax(line_ids)).tolist()
+        if lo < 0 or hi >= limit:
+            raise ValueError(f"line id range [{lo}, {hi}] outside "
+                             f"[0, {limit})")

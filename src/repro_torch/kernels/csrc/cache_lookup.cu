@@ -16,13 +16,17 @@
 // independent. Design: one warp per set, the ways on lanes (ways <= 32).
 // The warp holds its set's tags, valid bits and ages in registers, walks
 // that set's beats in arrival order -- __ballot_sync finds the match (the
-// lowest matching way wins, as jnp.argmax does), a butterfly argmin over
-// (age, way) picks the victim (the lowest way among equal ages, as
-// jnp.argmin does), the owning lane updates its registers -- and writes
-// the state back once. The wrapper groups the beats by set (a stable sort
-// of line % sets and per-set start offsets); the warp reads its beats 32
-// at a time, one per lane, and hands them round with __shfl_sync. The
-// longest per-set chain sets the time: a hot set is walked by one warp.
+// lowest matching way wins, as jnp.argmax does), __reduce_min_sync the
+// oldest age and a second ballot its lowest way (the lowest way among equal
+// ages, as jnp.argmin does), the owning lane updates its registers -- and
+// writes the state back once. The wrapper groups the beats by set on the
+// device (a stable sort of line % sets and per-set start offsets, no host
+// sync); the warp reads its beats 32 at a time, one per lane, each lane
+// computing its beat's tag once, and hands them round with __shfl_sync.
+// The line ids of the next group and the beats of the group after it are
+// loaded while a group runs. The longest per-set chain sets the time: a hot
+// set is walked by one warp, and each beat's chain is two shuffles, two
+// ballots and one warp reduction.
 #include <limits.h>
 
 #include "common.cuh"
@@ -32,7 +36,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kProbeWarps * 32)
 cache_probe_kernel(const int* __restrict__ line_ids,
-                   const int* __restrict__ order,
+                   const long long* __restrict__ order,
                    const int* __restrict__ set_start,
                    const int* __restrict__ tags_in,
                    const int* __restrict__ valid_in,
@@ -52,41 +56,39 @@ cache_probe_kernel(const int* __restrict__ line_ids,
   const long long slot = set * ways + lane;
   int tag = live ? tags_in[slot] : 0;
   int valid = live ? valid_in[slot] : 0;
+  // Lanes past `ways` hold INT_MAX and a higher lane than every live one,
+  // so the lowest lane of the oldest age is always a live way.
   int age = live ? age_in[slot] : INT_MAX;
   const int lo = set_start[set], hi = set_start[set + 1];
+  // This lane's beat of the current group, and of the next; the line id of
+  // the current group's beat. Loaded one and two groups ahead.
+  int beat = lo + lane < hi ? static_cast<int>(order[lo + lane]) : 0;
+  int line = lo + lane < hi ? line_ids[beat] : 0;
+  int next_beat =
+      lo + 32 + lane < hi ? static_cast<int>(order[lo + 32 + lane]) : 0;
   for (int base = lo; base < hi; base += 32) {
     const int count = min(32, hi - base);
-    int my_beat = 0, my_line = 0, my_hit = 0, my_way = 0;
-    if (lane < count) {
-      my_beat = order[base + lane];
-      my_line = line_ids[my_beat];
-    }
+    const int my_beat = beat, my_tag = line / sets;
+    beat = next_beat;
+    line = base + 32 + lane < hi ? line_ids[beat] : 0;
+    next_beat = base + 64 + lane < hi
+                    ? static_cast<int>(order[base + 64 + lane]) : 0;
+    int my_hit = 0, my_way = 0;
     for (int b = 0; b < count; ++b) {
-      const int beat = __shfl_sync(kFull, my_beat, b);
-      const int t = __shfl_sync(kFull, my_line, b) / sets;
+      const int stamp_beat = __shfl_sync(kFull, my_beat, b);
+      const int t = __shfl_sync(kFull, my_tag, b);
       const unsigned match = __ballot_sync(kFull, live && valid && tag == t);
-      // LRU victim: the lowest (age, way); lanes past `ways` hold INT_MAX
-      // and a larger way, so they never win over a live lane.
-      int best_age = age, best_way = lane;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const int other_age = __shfl_xor_sync(kFull, best_age, off);
-        const int other_way = __shfl_xor_sync(kFull, best_way, off);
-        if (other_age < best_age ||
-            (other_age == best_age && other_way < best_way)) {
-          best_age = other_age;
-          best_way = other_way;
-        }
-      }
-      const int hit = match != 0u;
-      const int way = hit ? __ffs(match) - 1 : best_way;
+      const int oldest = __reduce_min_sync(kFull, age);
+      const unsigned lru = __ballot_sync(kFull, age == oldest);
+      const int way = __ffs(match != 0u ? match : lru) - 1;
       if (lane == way) {
         tag = t;
         valid = 1;
-        age = static_cast<int>(clock0 + static_cast<unsigned>(beat) + 1u);
+        age = static_cast<int>(clock0 + static_cast<unsigned>(stamp_beat) +
+                               1u);
       }
       if (lane == b) {
-        my_hit = hit;
+        my_hit = match != 0u;
         my_way = way;
       }
     }
@@ -102,7 +104,7 @@ cache_probe_kernel(const int* __restrict__ line_ids,
   }
 }
 
-// line_ids: (n,) int32, >= 0; order: (n,) int32, the beats stably sorted by
+// line_ids: (n,) int32, >= 0; order: (n,) int64, the beats stably sorted by
 // line % sets; set_start: (sets + 1,) int32, set s's beats are
 // order[set_start[s] : set_start[s + 1]]; tags/valid/age: (sets, ways)
 // int32, ways <= 32; clock: (1,) int32. Outputs: hits, ways (n,) int32, the
@@ -121,7 +123,7 @@ extern "C" int cache_probe(const void* line_ids, const void* order,
                             kProbeWarps);
   cache_probe_kernel<<<grid, kProbeWarps * 32, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(line_ids), static_cast<const int*>(order),
+      static_cast<const int*>(line_ids), static_cast<const long long*>(order),
       static_cast<const int*>(set_start), static_cast<const int*>(tags),
       static_cast<const int*>(valid), static_cast<const int*>(age),
       static_cast<const int*>(clock), static_cast<int*>(hits),

@@ -18,14 +18,20 @@ from repro_torch.kernels._build import I64, P, CudaLibrary
 LIB = CudaLibrary("sorted_gather", {"gather_rows": (P, P, P, I64, I64, P)})
 
 
+def check_index_kind(idx: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless ``idx`` is a 1-D int32 or int64 tensor
+    (no device sync)."""
+    if idx.ndim != 1 or idx.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"indices must be 1-D int32 or int64, got "
+                         f"{idx.dtype} of shape {tuple(idx.shape)}")
+
+
 def check_row_indices(idx: torch.Tensor, n_rows: int) -> None:
     """Raise ``ValueError`` unless ``idx`` is a 1-D integer tensor with
     every entry in ``[0, n_rows)`` — one device sync. The reference's
     ``jnp.take`` would instead fill rows past the end with NaN and wrap
     negative indices; the port's contract is in-range indices."""
-    if idx.ndim != 1 or idx.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"indices must be 1-D int32 or int64, got "
-                         f"{idx.dtype} of shape {tuple(idx.shape)}")
+    check_index_kind(idx)
     if idx.numel():
         lo, hi = torch.stack(torch.aminmax(idx)).tolist()
         if lo < 0 or hi >= n_rows:

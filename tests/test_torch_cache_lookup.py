@@ -261,3 +261,25 @@ def test_cache_service_rejects_a_line_outside_the_table(bad):
     with pytest.raises(ValueError, match="outside"):
         tops.cache_service(torch.zeros((768, 4)),
                            torch.tensor([3, bad, 5]), state)
+
+
+@pytest.mark.parametrize("ids", ["empty_sets", "one_hot_set", "uniform",
+                                 "more_sets_than_int16"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_group_by_set_on_card_matches_group_by_set(ids, dtype, rng):
+    """The CUDA branch's grouping without a host sync (a sort and a
+    search, no ``bincount``), run on CPU tensors, gives ``group_by_set``'s
+    order and starts: with sets that get no beat, with one hot set, with
+    uniform ids, and with more sets than int16 sort keys hold."""
+    sets = 40000 if ids == "more_sets_than_int16" else 64
+    set_idx = {"empty_sets": rng.choice([3, 17, 40], 500),
+               "one_hot_set": np.where(rng.random(2000) < 0.9, 11,
+                                       rng.integers(0, sets, 2000)),
+               "uniform": rng.integers(0, sets, 3000),
+               "more_sets_than_int16": rng.integers(0, sets, 3000)}[ids]
+    set_idx = torch.from_numpy(set_idx).to(dtype)
+    order, start = tkernel.group_by_set_on_card(set_idx, sets)
+    want_order, want_start = tkernel.group_by_set(set_idx, sets)
+    assert order.dtype == torch.int64 and start.dtype == torch.int32
+    assert order.tolist() == want_order.tolist()
+    assert start.tolist() == want_start.tolist()

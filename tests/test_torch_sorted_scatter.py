@@ -290,3 +290,97 @@ def test_coalesce_add_runs_is_a_float32_per_run_sum():
         mag = t64[row].abs() + v64[run].abs().sum(0)
         bound = (run.size + 1) * np.finfo(np.float32).eps * mag
         assert bool(((got[run] - want).abs() <= bound).all()), row
+
+
+def _runs_batch(case, rng):
+    """Sorted indices of one shape that the span plan must cut right."""
+    s = tkernel.SPAN
+    if case == "one_run_of_all":
+        return torch.full((4 * s + 3,), 7, dtype=torch.int64)
+    if case in ("runs_of_span", "runs_of_span_plus_1", "runs_of_2span"):
+        length = {"runs_of_span": s, "runs_of_span_plus_1": s + 1,
+                  "runs_of_2span": 2 * s}[case]
+        return torch.arange(5).repeat_interleave(length) * 3
+    if case == "mixed":
+        lengths = rng.choice([1, 2, s - 1, s, s + 1, 2 * s, 2 * s + 1,
+                              3 * s + 5], 40)
+        return torch.from_numpy(np.repeat(np.arange(40) * 2, lengths))
+    # The main path's Zipf(1.1) token ids at a small width: 8 x 512 slots
+    # over a 2000-row vocabulary, so the hottest runs span many spans.
+    p = np.arange(1, 2001, dtype=np.float64) ** -1.1
+    ids = rng.permutation(2000)[rng.choice(2000, 4096, p=p / p.sum())]
+    return torch.from_numpy(np.sort(ids).astype(np.int32))
+
+
+@pytest.mark.parametrize("case", ["one_run_of_all", "runs_of_span",
+                                  "runs_of_span_plus_1", "runs_of_2span",
+                                  "mixed", "zipf"])
+def test_span_plan_cuts_each_long_run_into_its_spans(case, rng):
+    """The plan that the CUDA kernels follow: runs of at most SPAN slots
+    are short and get no span; every longer run is covered by its spans
+    exactly once, in slot order, each span SPAN slots from the run's first
+    slot (the last one fewer); each run names its table row; the lists
+    stay inside ``plan_capacity`` (under 2n/SPAN spans)."""
+    sidx = _runs_batch(case, rng)
+    n, s = sidx.numel(), tkernel.SPAN
+    plan = tkernel.span_plan_plain(sidx)
+    _, lengths = torch.unique_consecutive(sidx, return_counts=True)
+    starts = (torch.cumsum(lengths, 0) - lengths).tolist()
+    want_short = [(a, a + n_ - 1) for a, n_ in zip(starts, lengths.tolist())
+                  if n_ <= s]
+    want_long = [(a, a + n_ - 1) for a, n_ in zip(starts, lengths.tolist())
+                 if n_ > s]
+    assert list(zip(plan.short_first.tolist(),
+                    plan.short_last.tolist())) == want_short
+    assert list(zip(plan.long_first.tolist(),
+                    plan.long_last.tolist())) == want_long
+    rows = sidx.tolist()
+    assert plan.short_row.tolist() == [rows[a] for a, _ in want_short]
+    assert plan.long_row.tolist() == [rows[a] for a, _ in want_long]
+    spans = []
+    for m, (a, e) in enumerate(want_long):
+        k0 = plan.long_span0[m].item()
+        want_spans = [(b, min(b + s - 1, e)) for b in range(a, e + 1, s)]
+        got_spans = list(zip(plan.span_first.tolist(),
+                             plan.span_last.tolist()))
+        assert got_spans[k0:k0 + len(want_spans)] == want_spans
+        spans += want_spans
+    assert list(zip(plan.span_first.tolist(),   # every span, in slot order
+                    plan.span_last.tolist())) == spans
+    long_cap, span_cap = tkernel.plan_capacity(n)
+    assert len(want_long) <= long_cap and len(spans) <= span_cap < 2 * n / s
+    if case == "one_run_of_all":
+        assert plan.short_first.numel() == 0 and len(spans) == -(-n // s)
+    if case == "runs_of_span":
+        assert plan.span_first.numel() == 0 and plan.long_first.numel() == 0
+    if case in ("runs_of_span_plus_1", "runs_of_2span"):
+        assert plan.long_span0.tolist() == [0, 2, 4, 6, 8]
+        assert (plan.span_last - plan.span_first + 1).tolist() == [
+            s, n // 5 - s] * 5
+    # The spans' sums folded in span order are each run's sum: exact on
+    # integer values.
+    vals = torch.from_numpy(rng.integers(-50, 50, (n, 3)).astype(np.float64))
+    got = torch.zeros((n, 3), dtype=torch.float64)
+    for m, (a, e) in enumerate(want_long):
+        k0 = plan.long_span0[m].item()
+        for k in range(k0, k0 + -(-(e - a + 1) // s)):
+            got[e] += vals[plan.span_first[k]:plan.span_last[k] + 1].sum(0)
+    for a, e in want_short:
+        got[e] = vals[a:e + 1].sum(0)
+    table = torch.zeros((int(sidx.max()) + 1, 3), dtype=torch.float64)
+    want = tcoalesce.coalesce_add_runs(table, sidx, vals)
+    last = tkernel.last_of_run(sidx)
+    assert torch.equal(got[last], want[last])
+
+
+def test_plan_capacity_holds_at_the_bound():
+    """The lists' lengths are bounds reached by some batch: runs of SPAN +
+    1 slots give the most long runs, and then ceil(L / SPAN) = 2 spans
+    each."""
+    s = tkernel.SPAN
+    for runs in (1, 2, 7):
+        sidx = torch.arange(runs).repeat_interleave(s + 1)
+        plan = tkernel.span_plan_plain(sidx)
+        long_cap, span_cap = tkernel.plan_capacity(sidx.numel())
+        assert plan.long_first.numel() == long_cap == runs
+        assert plan.span_first.numel() == 2 * runs <= span_cap
