@@ -71,6 +71,17 @@ Phases (a failing phase raises and the script exits non-zero):
      block's largest magnitude; before those checks, ``serve_drift``
      prints where their differences arise, layer by layer. Runs after
      every earlier phase's tensors are freed.
+   After the cache path, the simulate phase runs the port's
+   modeled-timing simulator (numpy, on the host; no kernel may launch):
+   Fig. 7 and Fig. 7-write at the benchmarks' size, every field equal to
+   ``BENCH_fig7.json`` and ``BENCH_fig7_write.json`` read from disk; then
+   the scheduler path's 8 x 4096 Zipf ids as row reads of 14336 bytes
+   (yi-34b's bf16 row) through ``MemoryController.simulate`` and
+   ``modeled_gather_time``, each twice with the same result, and on the
+   batch's scheduled trace the FIFO command model and the MIG-like
+   windowed model each equal to its ``*_seq`` oracle. It prints the
+   makespan, the stage breakdown, the hit rate and each call's host
+   seconds.
 5. timing — per kernel at the main paths' shapes: the CUDA-event median
    of the kernel's wrapper, its plain version and one PyTorch library
    call computing the same function (none for the cache probe: no
@@ -97,6 +108,7 @@ import collections
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -114,7 +126,13 @@ from repro_torch.core import (CacheConfig, DMAConfig, HotRowCache,  # noqa: E402
                               MemoryController, PAPER_EVAL_CONFIG,
                               dma_engine, hit_rate_oracle, init_cache)
 from repro_torch.core.controller import scatter_set_last  # noqa: E402
-from repro_torch.core.scheduler import sort_requests  # noqa: E402
+from repro_torch.core.scheduler import (READ, WRITE, schedule_trace,  # noqa: E402
+                                        schedule_trace_rw, sort_requests)
+from repro_torch.core.timing import (DDR4_2400, simulate_dram_access,  # noqa: E402
+                                     simulate_dram_access_windowed,
+                                     simulate_dram_access_windowed_seq,
+                                     simulate_dram_sched,
+                                     simulate_dram_sched_seq)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bitonic_sort import kernel as bs_kernel  # noqa: E402
 from repro_torch.kernels.bitonic_sort import ops as bs_ops  # noqa: E402
@@ -205,6 +223,8 @@ ROUTES = {"sorted_gather": {"gather_rows_tma_kernel": "tma",
                              "scatter_add_fold_kernel": "span",
                              "scatter_add_runs_kernel": "one_pass"}}
 WARMUP, REPS = 3, 20
+# The name of the marker kernel that ``torch.cuda._sleep`` launches.
+TRACE_MARKER = "spin_kernel"
 
 
 def say(**fields) -> None:
@@ -236,18 +256,26 @@ def device_trace(fn, reps: int = 10, tries: int = 3) -> dict:
     argument list), and ``ms_by_kernel``, their durations by the same
     names. A trace with no device event at all is taken again,
     up to ``tries`` times: the profiler has returned an empty trace for
-    calls that did launch (once in about 30 traces on the H100)."""
+    calls that did launch (once in about 30 traces on the H100).
+
+    Each trace starts with one marker kernel (``torch.cuda._sleep``),
+    left out of every count: in some states of a long process the
+    profiler loses the first kernel event of every trace on the H100
+    (one of ``reps`` launches, trace after trace), and the marker takes
+    that loss."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and TRACE_MARKER not in e.name]
         if events:
             break
     us = sum(e.device_time_total for e in events)
@@ -1051,6 +1079,292 @@ def run_cache(dev, table) -> dict:
                 max_beats_per_set=int(per_set.max()))
 
 
+# ---------------------------------------------------------------------------
+# The simulate phase: the port's modeled-timing simulator, numpy on the host
+# ---------------------------------------------------------------------------
+# Fig. 7's method, copied from benchmarks/fig7_workloads.py and
+# benchmarks/fig7_write_workloads.py (which import the reference package)
+# onto the port's simulator, with their Zipf draws made by zipf_draws;
+# BENCH_fig7.json and BENCH_fig7_write.json hold the reference's records
+# of it.
+FIG7_NUM_PES = 8                 # concurrent PE request streams
+# The scheduler path's batch as row reads of yi-34b's bf16 embedding row.
+SIM_ROW_BYTES = D_MODEL * 2
+
+
+def _interleave(streams):
+    """Round-robin interleave request streams (parallel PEs)."""
+    maxlen = max(len(s) for s in streams)
+    out = []
+    for i in range(maxlen):
+        for s in streams:
+            if i < len(s):
+                out.append(s[i])
+    return np.asarray(out, np.int64)
+
+
+def zipf_draws(rng, a: float, n: int) -> np.ndarray:
+    """``rng.zipf(a, n)`` as numpy 2.0's ``Generator`` draws it (the
+    rejection loop of its ``random_zipf``), from ``rng.random()`` alone.
+    Later numpy releases draw another stream for the same seed, and the
+    BENCH files hold numpy 2.0's; the bit generator's own stream is
+    stable across releases. Scalar ``math.pow`` is the C library's
+    ``pow``, as in numpy's C loop (for ``a`` above about 1.06)."""
+    am1 = a - 1.0
+    b = math.pow(2.0, am1)
+    out = np.empty(n, np.int64)
+    i = 0
+    while i < n:
+        u = 1.0 - rng.random()
+        v = rng.random()
+        x = float(math.floor(math.pow(u, -1.0 / am1)))
+        if x > 2.0 ** 63 or x < 1.0:        # (double) INT64_MAX
+            continue
+        t = math.pow(1.0 + 1.0 / x, am1)
+        if v * x * (t - 1.0) / (b - 1.0) <= t / b:
+            out[i] = int(x)
+            i += 1
+    return out
+
+
+def fig7_gcn_trace(rng):
+    n_vertices = 1600
+    n_edges = 240_000 // 4          # edge visits sampled
+    feat_bytes = 4096               # 1024 features x 4B
+    adj_bytes = 256
+    feat_base = 1 << 26
+    # adjacency reads: Zipf-popular vertices (reusable across PEs)
+    adj_v = (zipf_draws(rng, 1.2, n_edges) - 1) % n_vertices
+    adj_addrs = adj_v * adj_bytes
+    # feature fetches: destination vertices of edges (random)
+    feat_v = rng.integers(0, n_vertices, n_edges // 16)
+    feat_addrs = feat_base + feat_v * feat_bytes
+    return adj_addrs, feat_addrs, feat_bytes
+
+
+def fig7_cnn_trace(rng):
+    """ResNet input layer, 227x227 images (paper §V-C): the cache engine
+    serves image-window reads and the DMA engine streams kernel
+    weights."""
+    img, k, stride = 227, 7, 2
+    row_bytes = img * 4             # one image row, one channel
+    img_base = 0
+    w_base = 1 << 26
+    w_transfer = 16 * 1024          # filter-bank stream per output tile
+    cache_reqs = []
+    for y in range(0, img - k, stride):         # full output grid
+        for x in range(0, img - k, stride):
+            for ky in range(k):                 # one line read per kernel row
+                cache_reqs.append(img_base + (y + ky) * row_bytes + x * 4)
+    cache_addrs = np.asarray(cache_reqs, np.int64)
+    n_tiles = 220                               # filter re-streams
+    w_addrs = w_base + (np.arange(n_tiles) % 8) * w_transfer
+    return cache_addrs, w_addrs, w_transfer
+
+
+def fig7_workload(cache_addrs, bulk_addrs, bulk_bytes) -> dict:
+    """One Fig. 7 workload: the MIG-like and FIFO baselines against the
+    controller (cache engine, scheduled misses, DMA streams)."""
+    cfg = PAPER_EVAL_CONFIG
+    t = DDR4_2400
+    bulk_expanded = [a + np.arange(0, bulk_bytes, 64) for a in bulk_addrs]
+    streams = []
+    for pe in range(FIG7_NUM_PES - 1):
+        streams.append(np.concatenate(bulk_expanded[pe::FIG7_NUM_PES - 1])
+                       if bulk_expanded[pe::FIG7_NUM_PES - 1] else
+                       np.empty(0, np.int64))
+    streams.append(cache_addrs)
+    base_stream = _interleave(streams)
+    base_fifo = simulate_dram_access_windowed(base_stream, t,
+                                              window=1).total_fpga_cycles
+    base = simulate_dram_access_windowed(base_stream, t,
+                                         window=4).total_fpga_cycles
+    line_ids = cache_addrs // cfg.cache.line_bytes
+    hits, hit_rate = hit_rate_oracle(cfg.cache, line_ids)
+    misses = cache_addrs[~hits]
+    served = schedule_trace(misses, np.zeros(len(misses), np.int32),
+                            config=cfg.scheduler, timings=t)
+    cache_cycles = (simulate_dram_access(served, t).total_fpga_cycles
+                    + hits.sum() * 1.0 + cfg.ctrl_overhead_cycles)
+    dma_cycles = simulate_dram_access(
+        np.concatenate(bulk_expanded) if bulk_expanded
+        else np.empty(0, np.int64), t).total_fpga_cycles
+    ctrl = cache_cycles + dma_cycles
+    improvement = 1 - ctrl / base
+    improvement_fifo = 1 - ctrl / base_fifo
+    return {
+        "improvement_vs_mig": round(improvement, 4),
+        "improvement_vs_fifo": round(improvement_fifo, 4),
+        "controller_cycles": round(ctrl),
+        "baseline_mig_cycles": round(base),
+        "baseline_fifo_cycles": round(base_fifo),
+        "cache_hit_rate": round(hit_rate, 4),
+        "dma_share": round(dma_cycles / ctrl, 4),
+    }
+
+
+def fig7w_embedding_grad_trace(rng, vocab=50_000, n_tokens=20_000,
+                               row_bytes=4096, num_pes=8):
+    """Read-modify-write per token over a Zipf vocabulary, issued by
+    ``num_pes`` workers whose streams interleave at the controller."""
+    tok = (zipf_draws(rng, 1.3, n_tokens) - 1) % vocab
+    addrs = tok * row_bytes
+    per_a = [np.repeat(addrs[p::num_pes], 2) for p in range(num_pes)]
+    per_rw = [np.tile(np.array([READ, WRITE], np.int32), a.shape[0] // 2)
+              for a in per_a]
+    keys = np.concatenate([np.sort(rng.random(a.shape[0])) for a in per_a])
+    order = np.argsort(keys, kind="stable")
+    return (np.concatenate(per_a)[order].astype(np.int64),
+            np.concatenate(per_rw)[order])
+
+
+def fig7w_kv_append_trace(rng, batch=32, steps=256, page_bytes=2048,
+                          reads_per_step=4):
+    """Interleaved per-sequence appends + strided cache read sweeps."""
+    seq_base = (np.arange(batch, dtype=np.int64) << 24)
+    addrs, rw = [], []
+    for t in range(steps):
+        for b in range(batch):
+            if t:
+                pages = rng.integers(0, t, min(reads_per_step, t))
+                for p in pages:
+                    addrs.append(seq_base[b] + p * page_bytes)
+                    rw.append(READ)
+            addrs.append(seq_base[b] + t * page_bytes)
+            rw.append(WRITE)
+    return (np.asarray(addrs, np.int64),
+            np.asarray(rw, np.int32))
+
+
+def fig7w_workload(addrs: np.ndarray, rw: np.ndarray) -> dict:
+    """One Fig. 7-write workload: the scheduler on against off."""
+    cfg = PAPER_EVAL_CONFIG
+    t = DDR4_2400
+    off = simulate_dram_access(addrs, t, rw=rw)
+    served, served_rw = schedule_trace_rw(
+        addrs, rw, config=cfg.scheduler, timings=t, coalesce_writes=True)
+    on = simulate_dram_access(served, t, rw=served_rw)
+    improvement = 1 - on.total_fpga_cycles / off.total_fpga_cycles
+    n_flips = int((rw[1:] != rw[:-1]).sum())
+    n_flips_served = int((served_rw[1:] != served_rw[:-1]).sum())
+    return {
+        "improvement_sched_on_vs_off": round(improvement, 4),
+        "on_cycles": round(on.total_fpga_cycles),
+        "off_cycles": round(off.total_fpga_cycles),
+        "writes_coalesced": int(addrs.shape[0] - served.shape[0]),
+        "row_hit_rate_on": round(on.hit_rate, 4),
+        "row_hit_rate_off": round(off.hit_rate, 4),
+        "bus_turnarounds_before": n_flips,
+        "bus_turnarounds_after": n_flips_served,
+    }
+
+
+def fig7_records() -> tuple[dict, dict]:
+    """The records of ``BENCH_fig7.json`` and ``BENCH_fig7_write.json``,
+    computed by the port's simulator."""
+    rng = np.random.default_rng(0)
+    adj, feat, fb = fig7_gcn_trace(rng)
+    gcn = fig7_workload(adj, feat, fb)
+    w, inp, ib = fig7_cnn_trace(rng)
+    cnn = fig7_workload(w, inp, ib)
+    fig7 = {"benchmark": "fig7_modeled_access_time",
+            "paper_claim": {"gcn_inference": 0.27, "cnn_inference": 0.58},
+            "workloads": {"gcn_inference": gcn, "cnn_inference": cnn}}
+    rng = np.random.default_rng(0)
+    eg = fig7w_workload(*fig7w_embedding_grad_trace(rng))
+    kv = fig7w_workload(*fig7w_kv_append_trace(rng))
+    fig7w = {"benchmark": "fig7_write_modeled_access_time",
+             "workloads": {"embedding_grad": eg, "kv_append": kv}}
+    return fig7, fig7w
+
+
+def same_result(a, b, where="result") -> None:
+    """Two simulator results equal field for field (``==``; arrays by
+    dtype and value)."""
+    if dataclasses.is_dataclass(a):
+        assert type(a) is type(b), where
+        for f in dataclasses.fields(a):
+            same_result(getattr(a, f.name), getattr(b, f.name),
+                        f"{where}.{f.name}")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and np.array_equal(a, b), where
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            same_result(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_result(x, y, f"{where}[{i}]")
+    else:
+        assert a == b, (where, a, b)
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def run_simulate() -> dict:
+    """The simulate phase: Fig. 7 and Fig. 7-write at the benchmark's
+    size, held to the BENCH files on disk, then the scheduler path's own
+    batch (8 x 4096 Zipf ids) as row reads of yi-34b's row through
+    ``simulate`` and ``modeled_gather_time``, each called twice, and the
+    DRAM models on its scheduled trace held to their ``*_seq`` oracles.
+    Host work only: no kernel may launch."""
+    zero_launches()
+    (fig7, fig7w), fig7_s = timed(fig7_records)
+    for got, name in ((fig7, "BENCH_fig7.json"),
+                      (fig7w, "BENCH_fig7_write.json")):
+        with open(os.path.join(ROOT, name)) as f:
+            want = json.load(f)
+        assert got == want, f"{name}: {got} != {want}"
+
+    mc = MemoryController(PAPER_EVAL_CONFIG)
+    ids = prefill_ids()
+    sim, sim_s = timed(lambda: mc.simulate(None, ids, None,
+                                           row_bytes=SIM_ROW_BYTES))
+    sim2, sim2_s = timed(lambda: mc.simulate(None, ids, None,
+                                             row_bytes=SIM_ROW_BYTES))
+    same_result(sim, sim2, "simulate")
+    gat, gat_s = timed(lambda: mc.modeled_gather_time(ids, SIM_ROW_BYTES))
+    gat2, gat2_s = timed(lambda: mc.modeled_gather_time(ids, SIM_ROW_BYTES))
+    same_result(gat, gat2, "modeled_gather_time")
+
+    t = DDR4_2400
+    addrs = ids.reshape(-1).astype(np.int64) * SIM_ROW_BYTES
+    served = schedule_trace(addrs, np.zeros(addrs.size, np.int32),
+                            config=PAPER_EVAL_CONFIG.scheduler, timings=t)
+    sched, sched_s = timed(lambda: simulate_dram_sched(
+        served, t, PAPER_EVAL_CONFIG.dram_sched))
+    sched_seq, sched_seq_s = timed(lambda: simulate_dram_sched_seq(
+        served, t, PAPER_EVAL_CONFIG.dram_sched))
+    same_result(sched, sched_seq, "simulate_dram_sched")
+    win, win_s = timed(lambda: simulate_dram_access_windowed(served, t))
+    win_seq, win_seq_s = timed(
+        lambda: simulate_dram_access_windowed_seq(served, t))
+    same_result(win, win_seq, "simulate_dram_access_windowed")
+    launches = {name: lib.launches for name, lib in LIBS.items()}
+    assert not any(launches.values()), f"a kernel launched: {launches}"
+    return dict(
+        fig7={k: v["controller_cycles"] for k, v in
+              fig7["workloads"].items()},
+        fig7_improvement_vs_mig={k: v["improvement_vs_mig"] for k, v in
+                                 fig7["workloads"].items()},
+        fig7_write_on_off={k: [v["on_cycles"], v["off_cycles"]] for k, v in
+                           fig7w["workloads"].items()},
+        fig7_s=fig7_s, numpy=np.__version__, requests=int(ids.size),
+        row_bytes=SIM_ROW_BYTES,
+        makespan_fpga_cycles=sim.makespan_fpga_cycles,
+        breakdown=sim.breakdown(), cache_hit_rate=sim.cache_hit_rate,
+        gather_fpga_cycles=gat.total_fpga_cycles,
+        gather_row_hit_rate=gat.hit_rate,
+        simulate_s=[sim_s, sim2_s], modeled_gather_time_s=[gat_s, gat2_s],
+        dram_sched_s=sched_s, dram_sched_seq_s=sched_seq_s,
+        windowed_s=win_s, windowed_seq_s=win_seq_s, launches=launches)
+
+
 def attention_pairs(S: int, causal: bool, window) -> int:
     """(query, key) pairs the mask leaves live in one (batch, head): the
     work the attention function needs on these inputs."""
@@ -1674,6 +1988,7 @@ def run(dev) -> None:
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     launches = {"scheduler": s["launches"], "bulk": b["launches"],
                 "cache": c["launches"]}
+    say(phase="simulate", **run_simulate())
 
     t = timings(dev, s)
     t["dma_copy"] = timings_bulk(dev, b)

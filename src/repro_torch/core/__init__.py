@@ -3,10 +3,17 @@
 The unified request-routing IP is ``controller.MemoryController``; the
 scheduler's data plane is ``scheduler.sort_requests``; the DMA engine is
 ``dma_engine`` and the cache engine ``cache_engine``; ``timing`` carries
-the DRAM timing parameters and Eq. 1. Counterpart of ``repro.core`` for
-the names the port covers so far.
+the DRAM/HBM cost model (Eq. 1-3) and the cycle-level simulator behind
+the paper-claim numbers, which ``pipeline`` and ``channels`` compose and
+``MemoryController.simulate`` / ``modeled_*`` drive. Counterpart of
+``repro.core``, the reference package, for the names the port covers.
 """
 
+from repro_torch.core.capture import TraceCapture, active_capture
+from repro_torch.core.channels import (AddressMap, ArbiterStats,
+                                       ChannelSimResult, arbitrate_ports,
+                                       simulate_channels,
+                                       simulate_multiport_channels)
 from repro_torch.core.config import (CacheConfig, ChannelConfig, DMAConfig,
                                      DRAMSchedConfig,
                                      MemoryControllerConfig,
@@ -23,15 +30,29 @@ from repro_torch.core.dma_engine import (TransferPlan, bulk_copy, bulk_write,
                                          channel_vmem_bytes,
                                          modeled_transfer_cycles,
                                          plan_transfer)
+from repro_torch.core.pipeline import (PipelineContext, PipelineResult,
+                                       RequestStream, StageStats,
+                                       default_stages, run_pipeline)
 from repro_torch.core.timing import (DDR4_2400, DRAMTimings, HBM_V5E,
-                                     t_schedule)
+                                     SchedSimResult, roofline_time_s,
+                                     simulate_dram_access,
+                                     simulate_dram_sched,
+                                     simulate_dram_sched_seq, t_schedule,
+                                     turnaround_cycles)
 
 __all__ = [
+    "TraceCapture", "active_capture",
     "CacheConfig", "ChannelConfig", "DMAConfig", "DRAMSchedConfig",
     "MemoryControllerConfig",
     "SchedulerConfig", "PAPER_EVAL_CONFIG", "PAPER_COMBINED_CONFIG",
     "HotRowCache", "MemoryController", "sorted_gather", "sorted_scatter",
-    "DDR4_2400", "HBM_V5E", "DRAMTimings", "t_schedule",
+    "AddressMap", "ArbiterStats", "ChannelSimResult", "arbitrate_ports",
+    "simulate_channels", "simulate_multiport_channels", "PipelineContext",
+    "PipelineResult", "RequestStream", "StageStats", "default_stages",
+    "run_pipeline", "DDR4_2400", "HBM_V5E", "DRAMTimings",
+    "SchedSimResult", "roofline_time_s", "simulate_dram_access",
+    "simulate_dram_sched", "simulate_dram_sched_seq", "t_schedule",
+    "turnaround_cycles",
     "CacheState", "FilterResult", "access_rw", "filter_trace_rw", "flush",
     "hit_rate_oracle", "init_cache", "lookup", "simulate_trace",
     "simulate_trace_rw",

@@ -57,7 +57,9 @@ def test_no_module_imports_jax_or_the_reference_package():
     mods = _modules()
     assert {"repro_torch.kernels._build", "repro_torch.configs.yi_34b",
             "repro_torch.models.lm", "repro_torch.launch.serve",
-            "repro_torch.kernels.flash_attention.kernel"} <= set(mods)
+            "repro_torch.kernels.flash_attention.kernel",
+            "repro_torch.core.pipeline", "repro_torch.core.channels",
+            "repro_torch.data.model_traces"} <= set(mods)
     assert len(mods) > 15
     code = (
         "import importlib, sys\n"
@@ -85,6 +87,33 @@ def test_no_source_names_jax_or_the_reference_package():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+@pytest.mark.parametrize("call", ["simulate", "simulate_open_loop",
+                                  "sched_fast", "arrivals_fast",
+                                  "faults_fast"])
+def test_lifecycle_trace_waits_for_its_slice(call):
+    """Per-request lifecycle tracing (the reference's telemetry) is not
+    ported: a ``trace`` that is not ``None`` raises, naming ROADMAP A5.3."""
+    from repro_torch.core import DRAMSchedConfig, DDR4_2400, trace_engine
+    from repro_torch.core.config import FaultConfig
+    rows = np.arange(64, dtype=np.int64) % 7
+    sched = DRAMSchedConfig(policy="frfcfs", reorder_window=4)
+    with pytest.raises(NotImplementedError, match="A5.3"):
+        if call.startswith("simulate"):
+            arr = np.arange(64.0) if call.endswith("open_loop") else None
+            MemoryController(PAPER_EVAL_CONFIG).simulate(
+                None, rows, None, 4096, arrival_cycle=arr, trace=object())
+        elif call == "sched_fast":
+            trace_engine.simulate_dram_sched_fast(rows * 4096, DDR4_2400,
+                                                  sched, trace=object())
+        elif call == "arrivals_fast":
+            trace_engine.simulate_arrivals_fast(rows * 4096, DDR4_2400,
+                                                sched, trace=object())
+        else:
+            trace_engine.simulate_faults_fast(
+                rows * 4096, DDR4_2400, sched, trace=object(),
+                faults=FaultConfig(seed=1, transient_ber=0.1))
 
 
 def test_imports_without_nvcc_or_triton(tmp_path):
