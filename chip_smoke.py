@@ -28,14 +28,19 @@ Phases (a failing phase raises and the script exits non-zero):
    windows, bidirectional hd 80, MQA, ragged S, S = 1). The sort also at
    N equal to its default chunk, twice it and eight times it, G > 1. The
    probe also with one hot set at the Table I shape, from tied ages and
-   with 32768 sets (int32 sort keys in its grouping). The
+   with 32768 sets (int32 sort keys in its grouping). The read/write
+   probe (``cache_probe_rw``, the set-parallel cache engine's tag walk)
+   bit-equal to its plain version over all nine outputs, under write-back
+   and write-through, on the cache_trace path's read/write trace from an
+   empty and from a dirty state, with one hot set, from tied ages and on
+   a stream that leaves no dirty way. The
    gather also at the serve lookup's shape, one run of 40000, runs across
    its spans, each access width and a misaligned table view; the DMA copy
    at one to eight channels, ragged totals, chunks under 16 bytes and of
    256 KB and a bulk write at an odd bf16 offset. Both kernels pick a
    route by alignment, and each checked call's route is named from the
    profiler's kernel names and held to the one its alignment calls for.
-4. slice — four main paths, each through the entry points a user calls,
+4. slice — five main paths, each through the entry points a user calls,
    with every launch counter zeroed just before it and read just after;
    each of its kernels must have run:
    - scheduler: the controller's data plane at the yi-34b embedding table
@@ -58,6 +63,20 @@ Phases (a failing phase raises and the script exits non-zero):
      28 lines of each token of sequence 0 of the prefill batch; lines
      held to ``table[line_ids]``, hits to the numpy ``hit_rate_oracle``,
      the new state to the plain probe and a plain last-writer scatter.
+   - cache_trace: the set-parallel cache engine, ``simulate_trace`` and
+     ``simulate_trace_rw`` with ``engine="parallel"`` and ``"auto"``, at the
+     same cache over the same lines: sequence 0's token lines read from
+     ``init_cache`` (B5), then 229,376 beats from the state that left --
+     sequence 1's lines read, interleaved beat for beat with sequence 0's
+     lines written (bf16 payloads from seed 0) -- under write-back and
+     write-through (``cache_probe_rw``). Each result bit-equal to the same
+     call on CPU copies of the inputs (the plain engine) and ``"auto"`` to
+     ``"parallel"``, which launched each kernel once; hits held to
+     ``hit_rate_oracle`` and ``filter_trace_rw``, the new table to a numpy
+     last-writer oracle of the victims ``filter_trace_rw`` lists (and,
+     flushed, of the in-order write stream); a 4096-beat prefix of each
+     trace also to the sequential walk on the CPU. It prints each call's
+     host seconds and host syncs and the longest per-set chains.
    - serve: ``repro_torch.launch.serve.Server("yi-34b")`` at the full
      configuration (60 layers, 68.78 GB of bf16 weights, random from
      seed 0) serving the reference CLI's mix: 12 requests of 1024 uniform
@@ -69,8 +88,11 @@ Phases (a failing phase raises and the script exits non-zero):
      and a decode step to the cache-free forward of its prefix, and B6's
      attention block at every layer within two bf16 ulps of the plain
      block's largest magnitude; before those checks, ``serve_drift``
-     prints where their differences arise, layer by layer. Runs after
-     every earlier phase's tensors are freed.
+     prints where their differences arise, layer by layer. ``serve`` ends
+     with the modeled KV replay (``Server.model_memory``), whose fields
+     must equal ``SERVE_MODELED`` (the reference's for the same request
+     shapes); its host seconds are printed apart. Runs after every
+     earlier phase's tensors are freed.
    After the cache path, the simulate phase runs the port's
    modeled-timing simulator (numpy, on the host; no kernel may launch):
    Fig. 7 and Fig. 7-write at the benchmarks' size, every field equal to
@@ -79,9 +101,14 @@ Phases (a failing phase raises and the script exits non-zero):
    (yi-34b's bf16 row) through ``MemoryController.simulate`` and
    ``modeled_gather_time``, each twice with the same result, and on the
    batch's scheduled trace the FIFO command model and the MIG-like
-   windowed model each equal to its ``*_seq`` oracle. It prints the
-   makespan, the stage breakdown, the hit rate and each call's host
-   seconds.
+   windowed model each equal to its ``*_seq`` oracle. Lifecycle tracing:
+   ``simulate(..., trace=TraceRecorder())`` on that batch, on Fig. 7's GCN
+   adjacency reads and on a two-tenant hog/victim stream equal to the
+   untraced call field for field; on the hog/victim stream the cycle
+   attribution's components sum to each request's sojourn bit for bit,
+   and its Chrome trace, written to a temporary directory, passes the
+   validator. It prints the makespan, the stage breakdown, the hit rate
+   and each call's host seconds.
 5. timing — per kernel at the main paths' shapes: the CUDA-event median
    of the kernel's wrapper, its plain version and one PyTorch library
    call computing the same function (none for the cache probe: no
@@ -95,7 +122,9 @@ Phases (a failing phase raises and the script exits non-zero):
    scatter's route (the span route for ``add`` at this batch) and its own
    kernels' device time without the table's clone; the cache probe's
    kernel alone. The cache path also counts the probe's and
-   ``cache_service``'s host syncs (the probe must make one).
+   ``cache_service``'s host syncs (the probe must make one). The
+   read/write probe at the cache_trace path's shape, and each engine
+   call's device time with its kernel's own in it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -113,6 +142,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -122,10 +152,16 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.core import (CacheConfig, DMAConfig, HotRowCache,  # noqa: E402
-                              MemoryController, PAPER_EVAL_CONFIG,
-                              dma_engine, hit_rate_oracle, init_cache)
+from repro_torch.core import (CacheConfig, CacheState, DMAConfig,  # noqa: E402
+                              HotRowCache, MemoryController,
+                              PAPER_EVAL_CONFIG, dma_engine,
+                              filter_trace_rw, flush, hit_rate_oracle,
+                              init_cache, simulate_trace, simulate_trace_rw)
+from repro_torch.core.config import (DRAMSchedConfig,  # noqa: E402
+                                     SchedulerConfig)
 from repro_torch.core.controller import scatter_set_last  # noqa: E402
+from repro_torch.core.telemetry import (COMPONENTS,  # noqa: E402
+                                        CycleAttribution, TraceRecorder)
 from repro_torch.core.scheduler import (READ, WRITE, schedule_trace,  # noqa: E402
                                         schedule_trace_rw, sort_requests)
 from repro_torch.core.timing import (DDR4_2400, simulate_dram_access,  # noqa: E402
@@ -133,7 +169,9 @@ from repro_torch.core.timing import (DDR4_2400, simulate_dram_access,  # noqa: E
                                      simulate_dram_access_windowed_seq,
                                      simulate_dram_sched,
                                      simulate_dram_sched_seq)
+from repro_torch.data.synthetic import hog_victim_workload  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.launch import tracing  # noqa: E402
 from repro_torch.kernels.bitonic_sort import kernel as bs_kernel  # noqa: E402
 from repro_torch.kernels.bitonic_sort import ops as bs_ops  # noqa: E402
 from repro_torch.kernels.cache_lookup import kernel as cl_kernel  # noqa: E402
@@ -144,24 +182,28 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E40
 from repro_torch.kernels.sorted_gather import kernel as sg_kernel  # noqa: E402
 from repro_torch.kernels.sorted_scatter import kernel as ss_kernel  # noqa: E402
 from repro_torch.kernels.sorted_scatter.coalesce import coalesce_add_runs  # noqa: E402
-from repro_torch.launch.serve import Request, Server  # noqa: E402
+from repro_torch.launch.serve import Request, Server, ServeStats  # noqa: E402
 from repro_torch.models import blocks, layers  # noqa: E402
 from repro_torch.models.params import leaves, map_tree  # noqa: E402
 
 LIBS = {"bitonic_sort": bs_kernel.LIB, "sorted_gather": sg_kernel.LIB,
         "sorted_scatter": ss_kernel.LIB, "dma_copy": dc_kernel.LIB,
-        "cache_lookup": cl_kernel.LIB, "flash_attention": fa_kernel.LIB}
+        "cache_lookup": cl_kernel.LIB, "flash_attention": fa_kernel.LIB,
+        "cache_probe_rw": cl_kernel.RW_LIB}
 REPLACES = {"bitonic_sort": "src/repro/kernels/bitonic_sort/kernel.py:85",
             "sorted_gather": "src/repro/kernels/sorted_gather/kernel.py:34",
             "sorted_scatter": "src/repro/kernels/sorted_scatter/kernel.py:38",
             "dma_copy": "src/repro/kernels/dma_copy/kernel.py:69",
             "cache_lookup": "src/repro/kernels/cache_lookup/kernel.py:63",
-            "flash_attention": "src/repro/kernels/flash_attention/kernel.py:92"}
+            "flash_attention": "src/repro/kernels/flash_attention/kernel.py:92",
+            # No Pallas kernel: the reference's XLA lax.scan step.
+            "cache_probe_rw": "src/repro/core/trace_engine.py:104"}
 # The main path that drives each kernel (phase 4); its launches are the
 # ones reported.
 PATH_OF = {"bitonic_sort": "scheduler", "sorted_gather": "scheduler",
            "sorted_scatter": "scheduler", "dma_copy": "bulk",
-           "cache_lookup": "cache", "flash_attention": "serve"}
+           "cache_lookup": "cache", "flash_attention": "serve",
+           "cache_probe_rw": "cache_trace"}
 SEED = 0
 VOCAB, D_MODEL = 64000, 7168     # yi-34b (src/repro/configs/yi_34b.py), bf16
 BATCH, SEQ = 8, 4096             # one prefill batch of token ids
@@ -177,6 +219,9 @@ KV_LAYER = 30
 # bf16), 16-way; a token's embedding row is 28 lines.
 CACHE_CFG = CacheConfig(line_width_bits=4096, num_lines=32768,
                         associativity=16)
+# The cache_trace path's sequential-walk check replays this many beats of
+# each trace on the CPU.
+SEQ_PREFIX = 4096
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 NONTENSOR_OPS_PER_S = 67e12      # H100 SXM float32 rate outside tensor cores
 TENSOR_BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -211,6 +256,22 @@ SERVE_REL_BOUND = 2e-2
 # within this many bf16 ulps of the plain block's largest magnitude, on the
 # same input.
 SERVE_ATTN_ULPS = 2.0
+# The serve mix's modeled KV replay (``Server.model_memory``: the mix's
+# ``kv_trace`` through ``MemoryController.simulate`` open loop, the
+# default controller config, no SLO), as the reference's
+# ``repro.launch.serve.Server.model_memory`` gives it for the same request
+# shapes; the replay depends on them alone, not on the model.
+SERVE_MODELED = dict(
+    modeled_p50_cycles=35455.98784878488,
+    modeled_p95_cycles=67395.73598859886,
+    modeled_p99_cycles=72181.29864686467,
+    modeled_makespan_cycles=74489.15451545155,
+    modeled_per_tenant={0: {
+        "n": 12864, "p50_sojourn": 35455.98784878488,
+        "p95_sojourn": 67395.73598859886, "p99_sojourn": 72181.29864686467,
+        "mean_sojourn": 35507.548829229934,
+        "worst_sojourn": 73432.15451545155}},
+    modeled_slo_attainment={})
 # The routes of the kernels that choose one by alignment, by the names of
 # their CUDA kernels in a profiler trace.
 ROUTES = {"sorted_gather": {"gather_rows_tma_kernel": "tma",
@@ -223,8 +284,10 @@ ROUTES = {"sorted_gather": {"gather_rows_tma_kernel": "tma",
                              "scatter_add_fold_kernel": "span",
                              "scatter_add_runs_kernel": "one_pass"}}
 WARMUP, REPS = 3, 20
-# The name of the marker kernel that ``torch.cuda._sleep`` launches.
+# The name of the marker kernel that ``torch.cuda._sleep`` launches, and
+# how many ``device_trace`` launches first.
 TRACE_MARKER = "spin_kernel"
+TRACE_MARKERS = 8
 
 
 def say(**fields) -> None:
@@ -258,25 +321,28 @@ def device_trace(fn, reps: int = 10, tries: int = 3) -> dict:
     up to ``tries`` times: the profiler has returned an empty trace for
     calls that did launch (once in about 30 traces on the H100).
 
-    Each trace starts with one marker kernel (``torch.cuda._sleep``),
+    Each trace starts with ``TRACE_MARKERS`` marker kernels
+    (``torch.cuda._sleep``), run to their end before ``fn``'s calls and
     left out of every count: in some states of a long process the
-    profiler loses the first kernel event of every trace on the H100
-    (one of ``reps`` launches, trace after trace), and the marker takes
-    that loss."""
+    profiler loses the first kernel events of a trace on the H100, trace
+    after trace, and the markers take that loss. A trace in which no marker survives may have lost more, and is
+    taken again too."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
+            for _ in range(TRACE_MARKERS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and TRACE_MARKER not in e.name]
-        if events:
+        on_card = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = [e for e in on_card if TRACE_MARKER not in e.name]
+        if events and len(events) < len(on_card):
             break
     us = sum(e.device_time_total for e in events)
     by_kernel = collections.Counter(e.name.split("(")[0] for e in events)
@@ -439,6 +505,23 @@ def probe_bytes(n: int, sets: int, ways: int) -> int:
     return 4 * n + 2 * (3 * 4 * sets * ways + 4) + 8 * n
 
 
+def probe_rw_bytes(n: int, sets: int, ways: int) -> int:
+    """Bytes the read/write probe must move: the line ids and write flags
+    read, the state (tags, valid bits, ages, dirty bits, clock) read and
+    written, hits, ways, evictions and victim tags written."""
+    return 5 * n + 2 * (4 * 4 * sets * ways + 4) + 16 * n
+
+
+def rw_trace() -> tuple[np.ndarray, np.ndarray]:
+    """The cache_trace path's read/write trace: sequence 1's token lines
+    read, interleaved beat for beat with sequence 0's lines written (its
+    embedding-gradient write-back). Returns (line ids, rw flags)."""
+    ids = prefill_ids()
+    reads, writes = token_lines(ids[1]), token_lines(ids[0])
+    return (np.stack([reads, writes], axis=1).reshape(-1),
+            np.tile(np.array([READ, WRITE], np.int32), reads.size))
+
+
 def check_dma(dev, gen) -> dict:
     """B4, the staged copy, bit for bit against its plain version; each
     call's route (``tma`` or ``cp_async``) named from the profiler's kernel
@@ -551,11 +634,60 @@ def check_cache(dev) -> None:
                 clock))
     both(main, (tags, valid, torch.from_numpy(rng.integers(
         0, 3, tuple(tags.shape)).astype(np.int32)).to(dev), clock + 5))
+    check_cache_rw(dev, rng)
     # 32768 sets (Table I's most lines, direct-mapped): more than int16
     # sort keys hold, so the grouping sorts int32 keys.
     many = CacheConfig(line_width_bits=512, num_lines=32768,
                        associativity=1)
     both(rng.integers(0, 4 * many.num_sets, 20000), empty(many))
+
+
+def check_cache_rw(dev, rng) -> None:
+    """``cache_probe_rw`` against its plain version over the whole
+    trajectory (hits, ways, evictions, victim tags and the new state) at
+    the Table I shape, under write-back and write-through: the
+    cache_trace path's read/write trace from an empty state, then again
+    from the dirty state it left; a stream with one hot set; from tied
+    ages (all INT_MAX, and repeats of 0, 1 and 2) with random valid and
+    dirty bits; and a read-only stream that leaves no dirty way."""
+    names = ("hits", "ways", "evict", "vic_tag", "tags", "valid", "age",
+             "dirty", "clock")
+
+    def both(ids_np, rw_np, state, write_back):
+        ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+        rw = torch.from_numpy(rw_np.astype(np.int32)).to(dev)
+        got = cl_kernel.cache_probe_rw(ids, rw, *state,
+                                       write_back=write_back)
+        want = cl_kernel.cache_probe_rw_plain(ids, rw, *state,
+                                              write_back=write_back)
+        for name, g, w in zip(names, got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), \
+                f"cache_probe_rw {name}, write_back={write_back}, " \
+                f"n={ids.numel()}"
+        return got[4:]
+
+    st0 = init_cache(CACHE_CFG, 1, device=dev)
+    empty = (st0.tags, st0.valid.to(torch.int32), st0.age,
+             st0.dirty.to(torch.int32), st0.clock.reshape(1))
+    ids, rw = rw_trace()
+    sets = CACHE_CFG.num_sets
+    for write_back in (True, False):
+        left = both(ids, rw, empty, write_back)
+        both(ids[::-1].copy(), 1 - rw, left, write_back)
+        hot = ids.copy()
+        hot[::16] = 5 + sets * rng.integers(0, 40, hot[::16].size)
+        both(hot, rw, empty, write_back)
+        shape = tuple(st0.tags.shape)
+        tags = torch.from_numpy(rng.integers(0, 40, shape).astype(
+            np.int32)).to(dev)
+        flags = [torch.from_numpy(rng.integers(0, 2, shape).astype(
+            np.int32)).to(dev) for _ in range(2)]
+        for age in (torch.full_like(st0.age, np.iinfo(np.int32).max),
+                    torch.from_numpy(rng.integers(0, 3, shape).astype(
+                        np.int32)).to(dev)):
+            both(ids, rw, (tags, flags[0], age, flags[1],
+                           st0.clock.reshape(1) + 5), write_back)
+        both(ids, np.zeros_like(rw), empty, write_back)
 
 
 def check_kernels(dev, gen):
@@ -732,6 +864,7 @@ def check_kernels(dev, gen):
             (got.double() - want.double()).abs().max()))
     dma_routes = check_dma(dev, gen)
     errs["dma_copy"] = errs["cache_lookup"] = 0.0   # bit-equal, asserted
+    errs["cache_probe_rw"] = 0.0                     # check_cache_rw
     torch.cuda.synchronize()
     return errs, mixed, dict(sorted_gather=gather_routes, dma_copy=dma_routes)
 
@@ -1079,6 +1212,218 @@ def run_cache(dev, table) -> dict:
                 max_beats_per_set=int(per_set.max()))
 
 
+def cpu_state(state: CacheState) -> CacheState:
+    return CacheState(**{f.name: getattr(state, f.name).cpu()
+                         for f in dataclasses.fields(state)})
+
+
+def same_run(got, want, what: str) -> None:
+    """Two engine results (a state, then tensors) bit for bit, on any
+    devices."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if isinstance(g, CacheState):
+            for f in dataclasses.fields(g):
+                assert same_bits(getattr(g, f.name).cpu(),
+                                 getattr(w, f.name).cpu()), \
+                    f"{what}: state.{f.name}"
+        else:
+            assert same_bits(g.cpu(), w.cpu()), f"{what}: output {i}"
+
+
+def table_after(lines_tab, payload, lines, before, rw_lines, rw) -> \
+        torch.Tensor:
+    """``lines_tab`` with each of ``lines`` holding the payload of the last
+    write to it before position ``before`` (one position, or one for each
+    line) of the read/write trace (``rw_lines``, ``rw``): a numpy
+    last-writer oracle."""
+    w_pos = np.flatnonzero(rw == WRITE)
+    key = rw_lines[w_pos] * (rw.size + 1) + w_pos
+    order = np.argsort(key, kind="stable")
+    at = np.searchsorted(key[order], lines * (rw.size + 1) + before) - 1
+    assert (at >= 0).all() and (rw_lines[w_pos[order[at]]] == lines).all(), \
+        "a line with no write before it"
+    out = lines_tab.clone()
+    dev = lines_tab.device
+    out[torch.from_numpy(lines).to(dev)] = payload[
+        torch.from_numpy(w_pos[order[at]]).to(dev)]
+    return out
+
+
+def run_cache_trace(dev, table) -> dict:
+    """Phase 4, cache_trace path: the set-parallel cache engine on the card
+    (``simulate_trace`` and ``simulate_trace_rw``, ``engine="parallel"``
+    and ``"auto"``) at the Table I maximum cache over the embedding table
+    as 512-byte lines: sequence 0's token lines read from ``init_cache``,
+    then the read/write trace of ``rw_trace`` from the state that left,
+    under write-back and write-through. Held to the same calls on CPU
+    copies of the inputs (the plain engine), to ``hit_rate_oracle`` and
+    ``filter_trace_rw`` (hits and victim write-backs), to the sequential
+    walk on the CPU over a prefix, and ``"auto"`` to ``"parallel"``."""
+    lines_tab = table.view(-1, line_elems())
+    sets = CACHE_CFG.num_sets
+    ids_np = token_lines(prefill_ids()[0])
+    rw_ids_np, rw_np = rw_trace()
+    ids = torch.from_numpy(ids_np).to(dev)
+    rw_ids, rw = (torch.from_numpy(a).to(dev) for a in (rw_ids_np, rw_np))
+    payload = torch.randn((rw_ids.numel(), line_elems()), device=dev,
+                          dtype=torch.bfloat16, generator=torch.Generator(
+                              device=dev).manual_seed(SEED))
+    state0 = init_cache(CACHE_CFG, line_elems(), torch.bfloat16, device=dev)
+    configs = {policy: dataclasses.replace(CACHE_CFG, write_policy=policy)
+               for policy in ("write_back", "write_through")}
+    kernels = ("cache_lookup", "cache_probe_rw")
+    runs, seconds, launched = {}, {}, {}
+
+    def drive(name, fn):
+        before = {k: LIBS[k].launches for k in kernels}
+        t0 = time.perf_counter()
+        runs[name] = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launched[name] = {k: LIBS[k].launches - before[k] for k in kernels}
+
+    torch.cuda.synchronize()
+    zero_launches()
+    for engine in ("parallel", "auto"):
+        drive(f"read {engine}", lambda: simulate_trace(
+            state0, ids, lines_tab, engine=engine))
+    warm = runs["read parallel"][0]
+    for policy, cfg in configs.items():
+        for engine in ("parallel", "auto"):
+            drive(f"rw {policy} {engine}", lambda: simulate_trace_rw(
+                warm, rw_ids, rw, payload, lines_tab, config=cfg,
+                engine=engine))
+    launches = read_launches("cache_trace")
+    assert launches["cache_lookup"] > 0, "B5 did not run on the read trace"
+    assert launched["read auto"] == {"cache_lookup": 1, "cache_probe_rw": 0}
+    for policy in configs:
+        assert launched[f"rw {policy} auto"] == {"cache_lookup": 0,
+                                                 "cache_probe_rw": 1}
+        same_run(runs[f"rw {policy} auto"], runs[f"rw {policy} parallel"],
+                 f"rw {policy}: auto against parallel")
+    same_run(runs["read auto"], runs["read parallel"],
+             "read: auto against parallel")
+
+    # The plain engine on CPU copies of the same inputs.
+    tab_cpu, st0_cpu = lines_tab.cpu(), cpu_state(state0)
+    read_cpu = simulate_trace(st0_cpu, ids.cpu(), tab_cpu, engine="parallel")
+    same_run(runs["read parallel"], read_cpu, "read: card against the CPU")
+    want_hits, hit_rate = hit_rate_oracle(CACHE_CFG, ids_np)
+    assert np.array_equal(runs["read parallel"][1].cpu().numpy(),
+                          want_hits), "read hits != hit_rate_oracle"
+    warm_cpu = read_cpu[0]
+    both_ids = np.concatenate([ids_np, rw_ids_np])
+    both_rw = np.concatenate([np.zeros_like(ids_np), rw_np]).astype(np.int32)
+    rw_hit_rate, writebacks = {}, {}
+    written = (np.unique(rw_ids_np[rw_np == WRITE]), rw_ids_np.size)
+    for policy, cfg in configs.items():
+        got = runs[f"rw {policy} parallel"]
+        same_run(got, simulate_trace_rw(
+            warm_cpu, rw_ids.cpu(), rw.cpu(), payload.cpu(), tab_cpu,
+            config=cfg, engine="parallel"), f"rw {policy}: card against CPU")
+        # The filter sees the read trace first: it starts from no state.
+        f = filter_trace_rw(cfg, both_ids, both_rw)
+        assert np.array_equal(got[2].cpu().numpy(), f.hits[ids_np.size:]), \
+            f"rw {policy}: hits != filter_trace_rw"
+        assert f.n_writebacks == 0 or int(f.wb_pos.min()) >= ids_np.size
+        # The table: each line the filter lists as a victim holds the last
+        # write to it before its last eviction (write-back), each written
+        # line its last write (write-through); every other row is as it
+        # was. After a flush of the final state, the in-order write stream.
+        if policy == "write_back":
+            victims = np.stack([f.wb_line, f.wb_pos - ids_np.size])
+            victims = victims[:, np.lexsort(victims[::-1])]
+            last = np.append(victims[0, 1:] != victims[0, :-1], True)
+            victims = victims[:, last]
+            assert same_bits(got[1], table_after(
+                lines_tab, payload, *victims, rw_ids_np, rw_np)), \
+                f"rw {policy}: table != filter_trace_rw's write-backs"
+            got = flush(got[0], got[1])
+        assert same_bits(got[1], table_after(lines_tab, payload, *written,
+                                             rw_ids_np, rw_np)), \
+            f"rw {policy}: table != the in-order write stream"
+        got = runs[f"rw {policy} parallel"]
+        rw_hit_rate[policy] = float(got[2].float().mean())
+        writebacks[policy] = f.n_writebacks
+
+    # The sequential walk on the CPU over a prefix of each trace.
+    k = SEQ_PREFIX
+    same_run(simulate_trace(state0, ids[:k], lines_tab, engine="parallel"),
+             simulate_trace(st0_cpu, ids.cpu()[:k], tab_cpu,
+                            engine="sequential"), "read prefix")
+    for policy, cfg in configs.items():
+        same_run(simulate_trace_rw(warm, rw_ids[:k], rw[:k], payload[:k],
+                                   lines_tab, config=cfg,
+                                   engine="parallel"),
+                 simulate_trace_rw(warm_cpu, rw_ids.cpu()[:k], rw.cpu()[:k],
+                                   payload.cpu()[:k], tab_cpu, config=cfg,
+                                   engine="sequential"),
+                 f"rw {policy} prefix")
+    del read_cpu, tab_cpu
+
+    syncs = {"read parallel": host_syncs(lambda: simulate_trace(
+        state0, ids, lines_tab, engine="parallel")),
+        "read auto": host_syncs(lambda: simulate_trace(
+            state0, ids, lines_tab, engine="auto"))}
+    for policy, cfg in configs.items():
+        for engine in ("parallel", "auto"):
+            syncs[f"rw {policy} {engine}"] = host_syncs(
+                lambda: simulate_trace_rw(warm, rw_ids, rw, payload,
+                                          lines_tab, config=cfg,
+                                          engine=engine))
+    return dict(
+        lines_tab=lines_tab, ids=ids, rw_ids=rw_ids, rw=rw, payload=payload,
+        state0=state0, warm=warm, configs=configs, launches=launches,
+        seconds=seconds, host_syncs={k: len(v) for k, v in syncs.items()},
+        hit_rate=hit_rate, rw_hit_rate=rw_hit_rate, writebacks=writebacks,
+        beats={"read": ids.numel(), "rw": rw_ids.numel()},
+        max_beats_per_set={
+            "read": int(np.bincount(ids_np % sets).max()),
+            "rw": int(np.bincount(rw_ids_np % sets).max())})
+
+
+def timings_cache_trace(dev, ct) -> dict:
+    """Phase 5 at the cache_trace path: each engine call's device time and
+    its kernels' own (from a profiler trace), and ``cache_probe_rw``
+    alone: its wrapper, device time, plain version and bound."""
+    lines_tab, warm, state0 = ct["lines_tab"], ct["warm"], ct["state0"]
+    ids, rw_ids, rw, payload = ct["ids"], ct["rw_ids"], ct["rw"], \
+        ct["payload"]
+    calls = {"read parallel": lambda: simulate_trace(
+        state0, ids, lines_tab, engine="parallel")}
+    for policy, cfg in ct["configs"].items():
+        calls[f"rw {policy} parallel"] = lambda cfg=cfg: simulate_trace_rw(
+            warm, rw_ids, rw, payload, lines_tab, config=cfg,
+            engine="parallel")
+    engine = {}
+    for name, call in calls.items():
+        trace = device_trace(call, reps=3)
+        engine[name] = dict(
+            device_ms=trace["ms"], device_launches_per_call=trace["launches"],
+            probe_device_ms=kernels_ms(trace, "cache_probe_kernel"),
+            probe_rw_device_ms=kernels_ms(trace, "cache_probe_rw_kernel"),
+            top_kernels_ms=dict(collections.Counter(
+                trace["ms_by_kernel"]).most_common(6)))
+    sets, ways = warm.tags.shape
+    n = rw_ids.numel()
+    args = (rw_ids, rw, warm.tags, warm.valid.to(torch.int32), warm.age,
+            warm.dirty.to(torch.int32), warm.clock)
+    call = lambda: cl_kernel.cache_probe_rw(*args, write_back=True)
+    trace = device_trace(call)
+    row = dict(
+        ms=time_ms(call), device_ms=trace["ms"],
+        device_launches_per_call=trace["launches"],
+        kernel_device_ms=kernels_ms(trace, "cache_probe_rw_kernel"),
+        library_ms=None,
+        bound_ms=probe_rw_bytes(n, sets, ways) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", host_syncs=len(host_syncs(call)),
+        max_beats_per_set=ct["max_beats_per_set"]["rw"],
+        plain_ms=time_ms(lambda: cl_kernel.cache_probe_rw_plain(
+            *args, write_back=True), reps=3),
+        engine=engine)
+    return {f"probe_rw {n} beats, {sets} sets x {ways} ways": row}
+
+
 # ---------------------------------------------------------------------------
 # The simulate phase: the port's modeled-timing simulator, numpy on the host
 # ---------------------------------------------------------------------------
@@ -1306,6 +1651,96 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+# Lifecycle tracing's two-tenant case: a latency tenant's bursts of Zipf
+# reads against a sequential hog, weighted 4:1 arbitration, FR-FCFS with a
+# starvation cap and refresh, scheduler and cache off (the reference's
+# ``serving_hog_victim_weighted`` golden case).
+HOG_VICTIM_CONFIG = dataclasses.replace(
+    PAPER_EVAL_CONFIG, num_pes=2,
+    scheduler=SchedulerConfig(enabled=False),
+    cache=CacheConfig(enabled=False),
+    dram_sched=DRAMSchedConfig(policy="frfcfs_cap", reorder_window=32,
+                               starvation_cap=8, t_rfc=420, t_refi=9363))
+
+
+# A traced run's DRAM stage goes through the event-emitting command model
+# even where the untraced one takes the FIFO model (the reference's does
+# too): its per-channel results are then the command model's subclass of
+# the FIFO result, and its info also names the policy, the window and the
+# refreshes.
+TRACED_INFO = {"sched_policy", "reorder_window", "n_refreshes"}
+
+
+def same_traced(a, b, where: str = "result") -> None:
+    """A traced ``simulate`` result ``a`` equal to the untraced ``b`` field
+    for field (``==``), on ``b``'s fields: where ``a`` holds a subclass of
+    ``b``'s result type, its added fields are not compared, and a stage's
+    info may add ``TRACED_INFO``."""
+    if dataclasses.is_dataclass(b):
+        assert isinstance(a, type(b)), (where, type(a), type(b))
+        for f in dataclasses.fields(b):
+            same_traced(getattr(a, f.name), getattr(b, f.name),
+                        f"{where}.{f.name}")
+    elif isinstance(b, dict):
+        assert b.keys() <= a.keys() and a.keys() - b.keys() <= TRACED_INFO, \
+            (where, a.keys() ^ b.keys())
+        for k in b:
+            same_traced(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(b, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_traced(x, y, f"{where}[{i}]")
+    else:
+        same_result(a, b, where)
+
+
+def check_tracing(ids: np.ndarray) -> dict:
+    """Lifecycle tracing on the simulator: ``simulate(..., trace=...)`` on
+    the scheduler path's batch, on Fig. 7's GCN adjacency reads and on the
+    hog/victim stream equals the untraced call field for field
+    (``same_traced``); on the hog/victim stream the cycle
+    attribution's components sum, left to right, to each request's
+    sojourn bit for bit, and its Chrome trace passes the validator.
+    Returns host seconds and counts."""
+    mc = MemoryController(PAPER_EVAL_CONFIG)
+    adj = fig7_gcn_trace(np.random.default_rng(0))[0] // 256
+    out = {}
+    for name, rows, row_bytes in (("batch", ids, SIM_ROW_BYTES),
+                                  ("gcn", adj, 256)):
+        rec = TraceRecorder()
+        traced, traced_s = timed(lambda: mc.simulate(
+            None, rows, None, row_bytes=row_bytes, trace=rec))
+        same_traced(traced, mc.simulate(None, rows, None,
+                                        row_bytes=row_bytes), name)
+        assert rec.n_events > 0, f"{name}: no event recorded"
+        out[name] = dict(traced_s=traced_s, events=rec.n_events)
+    rows, rw, pe, arr = hog_victim_workload(
+        np.random.default_rng(4), n_victim=600, n_hog=2400,
+        victim_rate=0.01, hog_rate=0.12)
+    hog = MemoryController(HOG_VICTIM_CONFIG)
+    rec = TraceRecorder()
+    res, res_s = timed(lambda: hog.simulate(
+        pe, rows, rw, 4096, arbiter_policy="weighted", weights=(4, 1),
+        arrival_cycle=arr, trace=rec))
+    same_traced(res, hog.simulate(pe, rows, rw, 4096,
+                                  arbiter_policy="weighted", weights=(4, 1),
+                                  arrival_cycle=arr), "hog_victim")
+    att = CycleAttribution.from_pipeline(res, rec)
+    assert np.array_equal(att.ltr_sum(), res.serving.sojourn_fpga_cycles), \
+        "attribution components do not sum to the sojourns"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hog_victim.trace.json")
+        counts = tracing.write_chrome_trace(path, rec)
+        with open(path) as f:
+            assert tracing.validate_chrome_trace(json.load(f)) == counts
+    tot = att.totals()
+    out["hog_victim"] = dict(
+        traced_s=res_s, events=rec.n_events, chrome_trace=counts,
+        requests=att.n, dominant=max(COMPONENTS, key=tot.get),
+        totals=tot)
+    return out
+
+
 def run_simulate() -> dict:
     """The simulate phase: Fig. 7 and Fig. 7-write at the benchmark's
     size, held to the BENCH files on disk, then the scheduler path's own
@@ -1345,6 +1780,7 @@ def run_simulate() -> dict:
     win_seq, win_seq_s = timed(
         lambda: simulate_dram_access_windowed_seq(served, t))
     same_result(win, win_seq, "simulate_dram_access_windowed")
+    traced = check_tracing(ids)
     launches = {name: lib.launches for name, lib in LIBS.items()}
     assert not any(launches.values()), f"a kernel launched: {launches}"
     return dict(
@@ -1362,7 +1798,8 @@ def run_simulate() -> dict:
         gather_row_hit_rate=gat.hit_rate,
         simulate_s=[sim_s, sim2_s], modeled_gather_time_s=[gat_s, gat2_s],
         dram_sched_s=sched_s, dram_sched_seq_s=sched_seq_s,
-        windowed_s=win_s, windowed_seq_s=win_seq_s, launches=launches)
+        windowed_s=win_s, windowed_seq_s=win_seq_s, tracing=traced,
+        launches=launches)
 
 
 def attention_pairs(S: int, causal: bool, window) -> int:
@@ -1633,6 +2070,14 @@ def run_serve(dev) -> dict:
         assert len(r.output) == SERVE_NEW and all(
             0 <= t < cfg.vocab_size for t in r.output), f"request {r.rid}"
     generated = sum(len(r.output) for r in reqs)
+    # ``serve`` ends with the modeled replay; its host seconds apart.
+    replay = ServeStats()
+    t0 = time.perf_counter()
+    server.model_memory(server.admit(reqs), replay)
+    model_memory_s = time.perf_counter() - t0
+    for field, want in SERVE_MODELED.items():
+        assert getattr(stats, field) == getattr(replay, field) == want, \
+            f"{field}: {getattr(stats, field)} != {want}"
     first = server.admit(reqs)[0]
     consistency = check_serve(server, first)
     return dict(
@@ -1647,6 +2092,8 @@ def run_serve(dev) -> dict:
         prefill_tokens_per_s=stats.prefill_tokens / stats.prefill_s,
         decode_s_per_step=stats.decode_s / stats.decode_steps,
         tokens_per_s=(stats.prefill_tokens + generated) / stats.wall_s,
+        model_memory_s=model_memory_s,
+        modeled={k: getattr(stats, k) for k in SERVE_MODELED},
         launches=launches, flash_attention_routes=routes, peak_mem_gb=peak,
         sample_output=reqs[0].output, **consistency)
 
@@ -1986,8 +2433,15 @@ def run(dev) -> None:
         hit_rate=c["hit_rate"], max_beats_per_set=c["max_beats_per_set"],
         host_syncs=c["host_syncs"],
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    ct = run_cache_trace(dev, s["table"])
+    say(phase="slice", path="cache_trace", seconds=ct["seconds"],
+        launches=ct["launches"], beats=ct["beats"], hit_rate=ct["hit_rate"],
+        rw_hit_rate=ct["rw_hit_rate"], writebacks=ct["writebacks"],
+        max_beats_per_set=ct["max_beats_per_set"],
+        host_syncs=ct["host_syncs"],
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     launches = {"scheduler": s["launches"], "bulk": b["launches"],
-                "cache": c["launches"]}
+                "cache": c["launches"], "cache_trace": ct["launches"]}
     say(phase="simulate", **run_simulate())
 
     t = timings(dev, s)
@@ -1999,6 +2453,7 @@ def run(dev) -> None:
                 assert row.get(key, ["tma"]) == ["tma"], \
                     f"{name} {shape}: {key} {row[key]}"
     t["cache_lookup"] = timings_cache(dev, c)
+    t["cache_probe_rw"] = timings_cache_trace(dev, ct)
     t["flash_attention"] = timings_attention(dev, gen)
     for name, shapes in t.items():
         if name == "flash_attention":
@@ -2016,9 +2471,10 @@ def run(dev) -> None:
                 "sorted_scatter": t["sorted_scatter"]["add"],
                 "dma_copy": next(iter(t["dma_copy"].values())),
                 "cache_lookup": next(iter(t["cache_lookup"].values())),
+                "cache_probe_rw": next(iter(t["cache_probe_rw"].values())),
                 "flash_attention": next(iter(
                     t["flash_attention"].values()))}
-    del s, b, c
+    del s, b, c, ct
     gc.collect()
     torch.cuda.empty_cache()
     say(phase="freed", allocated_gb=torch.cuda.memory_allocated(dev) / 1e9)
@@ -2035,7 +2491,7 @@ def run(dev) -> None:
         row = main_row[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{LIBS[name].name}.cu",
             "replaces": REPLACES[name],
             "launches": launches[PATH_OF[name]][name],
             "max_abs_err": errs[name], "ms": row["ms"],

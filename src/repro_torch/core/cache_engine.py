@@ -13,9 +13,11 @@ kernel. Address mapping: line = addr // line_bytes, set = line % num_sets,
 tag = line // num_sets (floor division, as the reference's). Counterpart of
 ``repro.core.cache_engine``. Like the reference, no function changes the
 state or table it is given; the sequential walks copy them once and then
-update the copies beat by beat. The reference's set-parallel trace engine
-(``engine="parallel"``) is not ported yet (ROADMAP A5); ``"auto"`` runs
-the sequential walk, which the reference holds bit-identical to it.
+update the copies beat by beat. Whole traces also take the set-parallel
+engine of ``repro_torch.core.trace_engine`` (``engine="parallel"``, and
+``"auto"`` where its preconditions hold, as the reference dispatches):
+on a CUDA state that is one kernel launch for the tag walk, where the
+sequential walk reads the host on every beat.
 """
 
 from __future__ import annotations
@@ -127,7 +129,8 @@ def simulate_trace_seq(
 ) -> Tuple[CacheState, torch.Tensor, torch.Tensor]:
     """Reference implementation of :func:`simulate_trace`: one beat per
     request, exactly the paper's shared-pipeline stall semantics. O(N)
-    sequential steps."""
+    sequential steps — kept as the oracle the set-parallel engine is
+    tested against, and as the fallback for pathological inputs."""
     st = state.clone()
     ids = line_ids.reshape(-1).tolist()
     hits = torch.zeros(len(ids), dtype=torch.bool)
@@ -137,15 +140,6 @@ def simulate_trace_seq(
     for i, lid in enumerate(ids):
         hits[i], lines[i] = _lookup_(st, lid, table[lid])
     return st, hits.to(table.device), lines
-
-
-def _engine(engine: str) -> None:
-    if engine == "parallel":
-        raise NotImplementedError(
-            "the set-parallel trace engine is not ported yet (ROADMAP A5); "
-            "engine='auto' and 'sequential' give its results")
-    if engine not in ("auto", "sequential"):
-        raise ValueError(f"unknown engine {engine!r}")
 
 
 def simulate_trace(
@@ -159,12 +153,28 @@ def simulate_trace(
     write-back port — flush dirty state first, or use
     :func:`simulate_trace_rw` for mixed traces.
 
-    ``engine`` selects the execution strategy — never the semantics:
-    ``"auto"`` and ``"sequential"`` run :func:`simulate_trace_seq`;
-    ``"parallel"`` (the reference's set-parallel engine) raises
-    ``NotImplementedError`` until ROADMAP A5 ports it.
+    ``engine`` selects the execution strategy — never the semantics (the
+    two are bit-identical, see ``trace_engine``):
+
+    * ``"auto"`` (default) — set-parallel engine when the trace is
+      concrete, long enough, has no negative id, and the starting state is
+      dirty-free (this path's no-write-back-port contract) and coherent
+      with ``table``; sequential walk otherwise
+      (``trace_engine.auto_parallel_ok``).
+    * ``"parallel"`` — force the set-parallel engine (on a CUDA state, B5's
+      kernel; a negative id raises ``ValueError``).
+    * ``"sequential"`` — force the one-beat-per-request reference walk.
     """
-    _engine(engine)
+    from repro_torch.core import trace_engine
+
+    if engine == "sequential":
+        return simulate_trace_seq(state, line_ids, table)
+    if engine == "parallel":
+        return trace_engine.simulate_trace_parallel(state, line_ids, table)
+    if engine != "auto":
+        raise ValueError(f"unknown engine {engine!r}")
+    if trace_engine.auto_parallel_ok(state, line_ids, table=table):
+        return trace_engine.simulate_trace_parallel(state, line_ids, table)
     return simulate_trace_seq(state, line_ids, table)
 
 
@@ -279,9 +289,30 @@ def simulate_trace_rw(
     lines) — call :func:`flush` on the final state to push residual dirty
     lines so ``table'`` matches the naive in-order write stream.
 
-    ``engine``: as in :func:`simulate_trace`.
+    ``engine``: ``"auto"`` / ``"parallel"`` / ``"sequential"`` — execution
+    strategy only; results are bit-identical (see ``trace_engine``). The
+    parallel engine additionally requires every line id to fall inside
+    the table (``0 <= lid < table.shape[0]``; another raises
+    ``ValueError``) and uniform table/data/payload dtypes, so its value
+    reconstruction is exact; ``"auto"`` checks this and falls back. On a
+    CUDA state its tag walk is the ``cache_probe_rw`` kernel.
     """
-    _engine(engine)
+    from repro_torch.core import trace_engine
+
+    wb = config.write_policy == "write_back"
+    if engine == "sequential":
+        return simulate_trace_rw_seq(state, line_ids, rw, write_lines,
+                                     table, config=config)
+    if engine == "parallel":
+        return trace_engine.simulate_trace_rw_parallel(
+            state, line_ids, rw, write_lines, table, write_back=wb)
+    if engine != "auto":
+        raise ValueError(f"unknown engine {engine!r}")
+    if trace_engine.auto_parallel_ok(state, line_ids, rw=rw,
+                                     write_lines=write_lines, table=table,
+                                     rw_path=True):
+        return trace_engine.simulate_trace_rw_parallel(
+            state, line_ids, rw, write_lines, table, write_back=wb)
     return simulate_trace_rw_seq(state, line_ids, rw, write_lines, table,
                                  config=config)
 

@@ -1,8 +1,8 @@
 """Trace capture: record the request stream a *model* actually emits.
 
 ``TraceCapture`` is the controller's observability seam for application
-traffic (ARCHITECTURE §13). While the lifecycle recorder (the reference's
-``telemetry.TraceRecorder``, ROADMAP A5.3) watches the modeled pipeline
+traffic (ARCHITECTURE §13). While the lifecycle recorder
+(``telemetry.TraceRecorder``) watches the modeled pipeline
 from the inside (per-request lifecycle events during a
 ``simulate()`` run), ``TraceCapture`` watches the *data plane* from the
 outside: every controller-routed model operation — embedding gather
@@ -34,8 +34,8 @@ layer-k+1 KV appends to slot *s* hit the same row, modeling page reuse
 within a decode step.
 
 Counterpart of the reference's ``repro.core.capture``, where the tracer
-test is a JAX one. The controller's and the models' recording hooks are
-ROADMAP A5.3 and A7.6; this slice loads, views and replays traces.
+test is a JAX one. ``MemoryController.capture`` records the controller's
+own calls; the models' ambient recording hooks are ROADMAP A7.6.
 """
 
 from __future__ import annotations

@@ -823,14 +823,13 @@ def simulate_serving_channels(
     ``faults=None`` (or an inactive config) is bit-identical to the
     fault-free walk.
 
-    ``trace`` (the reference's ``TraceRecorder``) opts into per-request
-    lifecycle tracing, which is ROADMAP A5.3: one that is not ``None``
-    raises ``NotImplementedError``.
+    ``trace`` (a :class:`repro_torch.core.telemetry.TraceRecorder`) opts
+    into per-request lifecycle tracing: each channel's engine emits its
+    event stream into ``trace.channel(k)``, with the stable selection
+    indices as the request ids. ``trace=None`` is the untraced paths,
+    bit-identical.
     """
-    from repro_torch.core.timing import (refuse_trace, simulate_arrivals,
-                                         simulate_faults)
-
-    refuse_trace(trace)
+    from repro_torch.core.timing import simulate_arrivals, simulate_faults
 
     amap = AddressMap(channel_cfg, timings, faults)
     addrs = np.asarray(addrs, dtype=np.int64).ravel()

@@ -8,8 +8,9 @@ row → gather/scatter → unsort) and optionally the **cache engine**
 ``bulk_write``). Counterpart of the data plane of the reference's
 ``repro.core.controller`` and of its modeled-timing entry points
 (``simulate`` and the four ``modeled_*`` methods), which run the staged
-pipeline of ``repro_torch.core.pipeline`` in numpy on the host. Trace
-capture (``capture``, the ``_record`` hooks) is ROADMAP A5.3.
+pipeline of ``repro_torch.core.pipeline`` in numpy on the host, and of
+its trace capture (``capture``: each data-plane call reports its request
+batch into a ``TraceCapture``).
 
 Every path has the value semantics of the naive access (``table[idx]`` /
 the in-order write stream), so disabling an engine never changes results,
@@ -25,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import capture as capture_mod
 from repro_torch.core import channels as channels_mod
 from repro_torch.core import dma_engine, pipeline as pipeline_mod
 from repro_torch.core import scatter_util, scheduler
@@ -165,6 +167,34 @@ class MemoryController:
     use_kernels: bool = True
     timings: DRAMTimings = dataclasses.field(default_factory=lambda: DDR4_2400)
     device: str | torch.device = "cuda"
+    # Opt-in trace recorder (ARCHITECTURE §13). When set, the data-plane
+    # entry points below report their request batches into it — values
+    # are never touched (``capture=None`` is bit-identical and adds no
+    # host sync; with a recorder, the row ids are copied to the host).
+    # This field records *only* to itself, never to the ambient
+    # ``capture.active_capture()``.
+    capture: "capture_mod.TraceCapture | None" = None
+
+    def _record(self, op: str, table: torch.Tensor, row_ids,
+                rw: int) -> None:
+        if self.capture is None:
+            return
+        n_rows = int(table.shape[0])
+        row_bytes = int(table.shape[-1]) * table.element_size()
+        self.capture.record(op, f"table:{n_rows}x{row_bytes}", n_rows,
+                            row_bytes, row_ids, rw=rw)
+
+    def _record_bulk(self, op: str, dst: torch.Tensor, nbytes: int, rw: int,
+                     offset_bytes: int = 0) -> None:
+        if self.capture is None:
+            return
+        total = dst.numel() * dst.element_size()
+        rb = capture_mod.DEFAULT_ROW_BYTES
+        pages = max(1, -(-total // rb))
+        first = int(offset_bytes) // rb
+        count = max(1, -(-int(nbytes) // rb))
+        self.capture.record_slice(op, f"bulk:{pages}x{rb}", pages, rb,
+                                  first, min(count, pages - first), rw=rw)
 
     def _on_device(self, *tensors: torch.Tensor) -> None:
         want = torch.device(self.device)
@@ -178,6 +208,7 @@ class MemoryController:
     def gather(self, table: torch.Tensor,
                indices: torch.Tensor) -> torch.Tensor:
         self._on_device(table, indices)
+        self._record("gather", table, indices, rw=0)
         if self.config.scheduler.enabled:
             return sorted_gather(table, indices, use_kernels=self.use_kernels)
         return table.index_select(0, indices.reshape(-1)).reshape(
@@ -187,6 +218,7 @@ class MemoryController:
                       cache: HotRowCache) -> torch.Tensor:
         if self.config.cache.enabled:
             self._on_device(table, indices, cache.hot_ids, cache.hot_data)
+            self._record("gather", table, indices, rw=0)
             return cache.gather(table, indices)
         return self.gather(table, indices)
 
@@ -206,6 +238,7 @@ class MemoryController:
         if mode not in ("set", "add"):
             raise ValueError(f"mode must be 'set' or 'add', got {mode!r}")
         self._on_device(table, indices, values)
+        self._record("scatter", table, indices, rw=1)
         if self.config.scheduler.enabled:
             return sorted_scatter(table, indices, values, mode=mode,
                                   use_kernels=self.use_kernels)
@@ -240,6 +273,8 @@ class MemoryController:
         """Bulk/streaming read of ``src`` (a weight tile): a copy of it,
         through the DMA engine's staging path when the engine is on."""
         self._on_device(src)
+        self._record_bulk("bulk_read", src, src.numel() * src.element_size(),
+                          rw=0)
         if self.config.dma.enabled:
             return dma_engine.bulk_copy(src, config=self.config.dma,
                                         use_kernels=self.use_kernels)
@@ -255,6 +290,9 @@ class MemoryController:
         self._on_device(dst, src)
         if offset_elems < 0 or offset_elems + src.numel() > dst.numel():
             raise ValueError("bulk_write region out of destination bounds")
+        item = dst.element_size()
+        self._record_bulk("bulk_write", dst, src.numel() * item, rw=1,
+                          offset_bytes=offset_elems * item)
         if self.config.dma.enabled:
             return dma_engine.bulk_write(dst, src, config=self.config.dma,
                                          offset_elems=offset_elems,
@@ -326,10 +364,15 @@ class MemoryController:
         config; an inactive :class:`~repro_torch.core.config.FaultConfig` is
         bit-identical to no fault layer at all (property-tested).
 
-        ``trace`` (the reference's ``TraceRecorder``) opts into
-        per-request lifecycle tracing (ARCHITECTURE §11), which is
-        ROADMAP A5.3: a ``trace`` that is not ``None`` raises
-        ``NotImplementedError``.
+        ``trace`` (a :class:`~repro_torch.core.telemetry.TraceRecorder`)
+        opts into per-request lifecycle tracing (ARCHITECTURE §11):
+        every stage emits its events into the recorder — arrivals,
+        grants, cache verdicts, batch ids, reorder-window entries,
+        per-attempt DRAM issues, replays, completions, plus channel
+        timeline events — for the Perfetto exporter
+        (``repro_torch.launch.tracing``) and the cycle-attribution report
+        (``repro_torch.core.telemetry.CycleAttribution``). ``trace=None``
+        leaves every code path bit-identical.
 
         Raises ``ValueError`` on an empty trace — a zero-request
         simulation is almost always an upstream bug (an over-filtered

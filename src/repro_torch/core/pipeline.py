@@ -46,8 +46,8 @@ tuned jointly.
 Counterpart of the reference's ``repro.core.pipeline``, copied
 expression for expression; numpy on the host, like the reference's. Its
 ``CacheFilterStage`` runs the port's ``cache_engine.filter_trace_rw``,
-whose ``engine="auto"`` is the sequential walk until ROADMAP A5.2 ports
-the set-parallel engine (bit-identical by the reference's own tests).
+the reference's numpy lockstep walk (no data movement, so no device
+work).
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ from repro_torch.core import scheduler as scheduler_mod
 from repro_torch.core.config import (CacheConfig, ChannelConfig,
                                      DRAMSchedConfig, FaultConfig,
                                      MemoryControllerConfig, SchedulerConfig)
-from repro_torch.core.timing import (DRAMTimings, SimResult, refuse_trace,
+from repro_torch.core.timing import (DRAMTimings, SimResult,
                                      simulate_dram_access,
                                      simulate_dram_sched,
                                      t_overlapped_schedule)
@@ -236,10 +236,11 @@ class PipelineContext:
     serving_port_stats: "channels_mod.ArbiterStats | None" = None
     serving_dropped: np.ndarray | None = None       # DRAMService, by seq
     fault_stats: "object | None" = None             # DRAMService
-    #: opt-in per-request lifecycle recorder (the reference's
-    #: ``TraceRecorder``), ROADMAP A5.3: :func:`run_pipeline` raises
-    #: ``NotImplementedError`` for one that is not ``None``. The stages
-    #: keep the reference's recording code for it.
+    #: opt-in per-request lifecycle recorder
+    #: (:class:`repro_torch.core.telemetry.TraceRecorder`); ``None`` keeps
+    #: every stage on its unchanged hot path (bit-identical results).
+    #: Duck-typed — the pipeline never imports telemetry unless a recorder
+    #: is attached.
     trace: "object | None" = None
 
     @classmethod
@@ -951,7 +952,6 @@ def default_stages(
 def run_pipeline(stream: RequestStream, ctx: PipelineContext,
                  stages: Sequence) -> PipelineResult:
     """Push ``stream`` through ``stages`` and assemble the result."""
-    refuse_trace(ctx.trace)
     n_in = len(stream)
     open_loop_in = stream.has_arrivals
     stats_list: list[StageStats] = []

@@ -15,9 +15,10 @@ for expression (the pinned goldens compare its float64 cycle sums with
    bank/row state. It is numpy on the host, like the reference's; it
    touches no device tensor.
 
-Per-request lifecycle tracing (``trace=``, the reference's
-``repro.core.telemetry``) is ROADMAP A5.3: until then a ``trace`` that is
-not ``None`` raises ``NotImplementedError``.
+Per-request lifecycle tracing (``trace=``) records into
+``repro_torch.core.telemetry``: the ``*_seq`` oracles emit events natively,
+the fast paths run untouched and replay the same stream from their
+outputs; ``trace=None`` changes nothing.
 
 All times are reported in FPGA/accelerator clock cycles unless noted.
 """
@@ -187,16 +188,6 @@ def t_dma_transfer(
     # (paper Fig. 5 discussion); memory channels overlap across channels.
     t_elems /= max(1, cfg.dma.num_parallel_dma)
     return cfg.ctrl_overhead_cycles + t_sch + l_data_convert + t_elems
-
-
-def refuse_trace(trace) -> None:
-    """Raise for a lifecycle ``trace`` recorder: the reference's
-    ``repro.core.telemetry`` is not ported yet (ROADMAP A5.3). Every entry
-    point that takes ``trace=`` calls this first."""
-    if trace is not None:
-        raise NotImplementedError(
-            "trace= (per-request lifecycle tracing) is not ported yet "
-            "(ROADMAP A5.3); pass trace=None")
 
 
 # ---------------------------------------------------------------------------
@@ -505,12 +496,12 @@ def simulate_dram_sched_seq(
     the per-bank FIFO classification of :func:`simulate_dram_access`
     (bit-identical, including turnarounds).
 
-    ``trace`` (the reference's ``ChannelTrace``) makes the reference's
-    oracle emit the per-request lifecycle event stream natively; the
-    emitting code is kept for ROADMAP A5.3, and until then a ``trace``
-    that is not ``None`` raises ``NotImplementedError``.
+    ``trace`` (a :class:`repro_torch.core.telemetry.ChannelTrace`) makes
+    this oracle emit the per-request lifecycle event stream natively — the
+    event schema's specification, which the fast path reconstructs via
+    :func:`repro_torch.core.telemetry.replay_sched_events` (tested
+    tuple-for-tuple equal). ``trace=None`` changes nothing.
     """
-    refuse_trace(trace)
     addrs = np.asarray(addrs, dtype=np.int64).ravel()
     n = addrs.size
     if n == 0:
@@ -624,12 +615,13 @@ def simulate_dram_sched(
     ``repro_torch.core.trace_engine`` (hit runs at array speed, one python
     event per serviced miss / refresh / forced starvation pick).
 
-    ``trace`` (the lifecycle event stream) is ROADMAP A5.3: one that is
-    not ``None`` raises ``NotImplementedError``.
+    ``trace`` requests the lifecycle event stream: the sequential
+    engine emits natively, the fast engines reconstruct it from their
+    outputs after the timing run (``trace=None`` is the zero-overhead
+    hot path — no code on it changes).
     """
     if engine not in ("auto", "fast", "sequential"):
         raise ValueError(f"engine={engine!r} must be auto|fast|sequential")
-    refuse_trace(trace)
     if engine == "sequential":
         return simulate_dram_sched_seq(addrs, timings, sched, rw, trace)
     addrs = np.asarray(addrs, dtype=np.int64).ravel()
@@ -645,6 +637,10 @@ def simulate_dram_sched(
             first_accesses=base.first_accesses,
             turnaround_dram_cycles=turn,
             service_order=np.arange(n, dtype=np.int64))
+        if trace is not None:
+            from repro_torch.core import telemetry
+            telemetry.replay_sched_events(addrs, timings, sched, rw, res,
+                                          trace)
         return res
     from repro_torch.core import trace_engine
     return trace_engine.simulate_dram_sched_fast(addrs, timings, sched, rw,
@@ -790,13 +786,13 @@ def simulate_arrivals_seq(
     ``arbitrate_ports_seq`` composed with it (same permutation, counts
     and makespan — the closed-loop degeneracy property tests).
 
-    ``trace`` (the reference's ``ChannelTrace``) makes the reference's
-    oracle emit the lifecycle event stream natively — grants, idle gaps,
-    refresh windows, turnarounds, issues, completions; the emitting code
-    is kept for ROADMAP A5.3, and until then a ``trace`` that is not
-    ``None`` raises ``NotImplementedError``.
+    ``trace`` (a :class:`repro_torch.core.telemetry.ChannelTrace`) emits
+    the lifecycle event stream natively — grants, idle gaps, refresh
+    windows, turnarounds, issues, completions — which
+    :func:`repro_torch.core.telemetry.replay_arrival_events` reconstructs
+    from the fast path's outputs (tested tuple-for-tuple equal).
+    ``trace=None`` changes nothing.
     """
-    refuse_trace(trace)
     addrs, n, rw_arr, arr, ports, nports = _serving_trace(
         addrs, timings, rw, arrival_fpga, pe_id, num_ports)
     if n == 0:
@@ -980,12 +976,11 @@ def simulate_arrivals(
     rw). Single-port streams run the chunked frontier scan in
     ``repro_torch.core.trace_engine`` (row-hit runs at array speed, truncated
     by arrival/refresh/window boundaries); multi-port streams run its
-    optimized admission-coupled event loop. ``trace`` (the lifecycle
-    event stream) is ROADMAP A5.3: one that is not ``None`` raises
-    ``NotImplementedError``."""
+    optimized admission-coupled event loop. ``trace`` requests the
+    lifecycle event stream (oracle-emitted or fast-path-reconstructed;
+    ``trace=None`` is the unchanged hot path)."""
     if engine not in ("auto", "fast", "sequential"):
         raise ValueError(f"engine={engine!r} must be auto|fast|sequential")
-    refuse_trace(trace)
     if engine == "sequential":
         return simulate_arrivals_seq(
             addrs, timings, sched, rw, arrival_fpga=arrival_fpga,
@@ -1091,18 +1086,18 @@ def simulate_faults_seq(
     clock expression differs from :func:`simulate_arrivals_seq` — the
     zero-rate degeneracy is bit-identical (property-tested).
 
-    ``trace`` (the reference's ``ChannelTrace``) makes the reference's
-    oracle emit the lifecycle event stream natively — the serving events
-    plus replay re-admissions, outage windows, per-attempt issue outcomes
-    (ok/corrected/silent/failed), replay enqueues and drops; the emitting
-    code is kept for ROADMAP A5.3, and until then a ``trace`` that is not
-    ``None`` raises ``NotImplementedError``.
+    ``trace`` (a :class:`repro_torch.core.telemetry.ChannelTrace`) emits
+    the lifecycle event stream natively — the serving events plus replay
+    re-admissions, outage windows, per-attempt issue outcomes
+    (ok/corrected/silent/failed), replay enqueues and drops — which
+    :func:`repro_torch.core.telemetry.replay_fault_events` reconstructs
+    from the fast path's outputs and the deterministic fault draws (tested
+    tuple-for-tuple equal). ``trace=None`` changes nothing.
     """
     import heapq
 
     from repro_torch.core import faults as F
 
-    refuse_trace(trace)
     fc = faults if faults is not None else FaultConfig()
     addrs, n, rw_arr, arr, ports, nports = _serving_trace(
         addrs, timings, rw, arrival_fpga, pe_id, num_ports)
@@ -1414,12 +1409,11 @@ def simulate_faults(
     or nothing to inject on any channel) delegates to the fault-free
     fast path and wraps its result — the zero-rate degeneracy costs
     nothing (and emits the fault-free event stream, which is what the
-    oracle emits too when nothing injects). ``trace`` (the lifecycle
-    event stream) is ROADMAP A5.3: one that is not ``None`` raises
-    ``NotImplementedError``."""
+    oracle emits too when nothing injects). ``trace`` requests the
+    lifecycle event stream; ``trace=None`` is the unchanged hot
+    path."""
     if engine not in ("auto", "fast", "sequential"):
         raise ValueError(f"engine={engine!r} must be auto|fast|sequential")
-    refuse_trace(trace)
     if engine == "sequential":
         return simulate_faults_seq(
             addrs, timings, sched, rw, faults=faults, channel=channel,

@@ -1,25 +1,413 @@
-"""Trace engine — the numpy fast paths of the DRAM command simulator.
+"""Trace engine — the set-parallel cache engine on the card, and the numpy
+fast paths of the DRAM command simulator.
 
-Counterpart of the numpy half of the reference's
-``repro.core.trace_engine``, copied expression for expression: the
-chunked out-of-order command scheduler (:func:`simulate_dram_sched_fast`),
-the open-loop serving loop (:func:`simulate_arrivals_fast`) and the
+Counterpart of the reference's ``repro.core.trace_engine``, in two halves.
+
+**The set-parallel cache engine** (:func:`simulate_trace_parallel`,
+:func:`simulate_trace_rw_parallel`, dispatched by ``cache_engine`` under
+:func:`auto_parallel_ok`). The sequential cache engine walks a trace one
+beat at a time; this half exploits the one fact that makes the LRU cache
+*exactly* parallel:
+
+**Set partition.** With ``set = line % num_sets`` every request touches
+only the state rows of its own set, every victim write-back lands on a
+line of the *same* set (``victim_line = tag * num_sets + set``), and every
+fill/write-through access of the backing table hits a row of the same set
+(``row % num_sets == set``). The trace, the cache state *and* the backing
+table therefore partition cleanly by set index: simulating the per-set
+subtraces independently — in any interleaving — produces bit-identical
+final state, hit flags, served lines and table contents to the strict
+one-beat-at-a-time scan.
+
+Two passes, both on the state's device:
+
+1. **Tag pipeline** (:func:`tag_pipeline`): the control state only
+   (``tags/valid/age/dirty`` — no Data RAM, no table), each set's beats in
+   arrival order, each beat stamped with its *global* arrival position
+   (``clock0 + i + 1``) so LRU ages are bit-identical. On a CUDA state it
+   is one kernel launch: B5's ``cache_probe`` for a read trace, and
+   ``cache_probe_rw`` (the second kernel of ``csrc/cache_lookup.cu``: B5's
+   walk with the dirty bit and the write flag) for a read/write trace.
+   Both group the beats by set on the device and walk each set with one
+   warp. On a CPU state their plain versions run the same walk as a
+   lockstep over the sets. The reference drives this walk through chunked
+   ``lax.scan`` rounds, a geometric tail staircase and padded lanes
+   (``FINISH_LANES``, ``TAIL_CHUNKS``) only to bound XLA's compile cache
+   and its padding; by the set-partition argument any interleaving of the
+   sets gives the same bits, so the port has none of them.
+
+2. **Data reconstruction**: served lines, the final Data RAM and the final
+   backing table are recovered from the tag-pipeline outputs with
+   O(N log N) torch passes instead of being threaded through the walk.
+   The key invariant is *clean-line coherence*: a valid clean way's data
+   always equals the backing-table row it caches, so the value any read
+   observes is the **last write to its line** before it — a real trace
+   write, the pre-trace content of an initially dirty way ("virtual
+   write"), or, failing those, the original table row. Victim flushes and
+   write-through stores are then per-line "latest event wins" scatters
+   onto the table. These are pure copies, bit-exact. A write with
+   duplicate targets goes through ``controller.scatter_set_last`` (max of
+   int32 arrival stamps): torch's ``index_put_`` leaves the winner of a
+   duplicate undefined on CUDA, where numpy's fancy assignment is
+   last-wins (ROADMAP C15). No float atomics run, so a call gives the same
+   bits every time.
+
+**The numpy fast paths**, copied expression for expression: the chunked
+out-of-order command scheduler (:func:`simulate_dram_sched_fast`), the
+open-loop serving loop (:func:`simulate_arrivals_fast`) and the
 fault-injected one (:func:`simulate_faults_fast`), each bit-identical to
 its ``*_seq`` oracle in ``repro_torch.core.timing``. They run on the host,
-like the reference's.
-
-The reference module's other half, the set-parallel cache engine
-(``partition_by_set``, ``_tag_round``, ``simulate_trace(_rw)_parallel``,
-``auto_parallel_ok``), runs on the accelerator and is ROADMAP A5.2; until
-then ``cache_engine``'s ``engine="auto"`` runs the sequential walk, which
-the reference holds bit-identical to it. Lifecycle tracing (``trace=``)
-is ROADMAP A5.3: a ``trace`` that is not ``None`` raises
-``NotImplementedError``.
+like the reference's. With a ``trace`` recorder each runs untouched, then
+``repro_torch.core.telemetry``'s ``replay_*_events`` reconstructs the
+oracle's lifecycle event stream from its outputs.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.core.capture import is_concrete
+
+
+#: auto-dispatch guard: below this trace length the sequential walk's cost
+#: is already trivial and the set-parallel set-up is not worth paying.
+MIN_PARALLEL_TRACE = 256
+
+
+def _ids(line_ids, device) -> torch.Tensor:
+    """Line ids as a 1-D int64 tensor on ``device``."""
+    return torch.as_tensor(line_ids).to(device, torch.int64).reshape(-1)
+
+
+def partition_by_set(line_ids: torch.Tensor, num_sets: int):
+    """Group a trace by cache set, preserving arrival order within sets.
+
+    Returns ``(perm, starts, counts)``: ``perm`` stable-sorts the trace by
+    set index, so set ``s`` owns sorted positions
+    ``starts[s] : starts[s] + counts[s]`` (in arrival order). The grouping
+    is the kernels' own (``group_by_set_on_card``: a stable sort of the
+    set ids, int16 keys where the sets fit, and a search for the starts),
+    which the tag walk runs inside its wrappers.
+    """
+    from repro_torch.kernels.cache_lookup.kernel import group_by_set_on_card
+
+    perm, start = group_by_set_on_card(line_ids % num_sets, num_sets)
+    start = start.long()
+    return perm, start[:-1], start.diff()
+
+
+# ---------------------------------------------------------------------------
+# Pass 1 — tag pipeline (control state only)
+# ---------------------------------------------------------------------------
+
+def tag_pipeline(state, lids: torch.Tensor, rw: torch.Tensor | None, *,
+                 write_back: bool, limit: int = 1 << 31):
+    """Drive the whole trace through the tag pipeline: the reference's
+    ``_run_tag_pipeline``.
+
+    ``lids`` is a 1-D int64 tensor on the state's device, every id in
+    ``[0, limit)``, ``limit <= 2^31`` (the kernels raise ``ValueError``
+    otherwise — C3's rule for negative ids; the reference's floor ``%``
+    takes them). ``rw`` marks the writes. Returns the
+    final control state ``(tags, valid, age, dirty)``, then the
+    arrival-order outcome vectors ``hit`` (bool), ``way``, ``evict`` (a
+    dirty victim is written back at this beat) and ``vic_tag`` (the tag of
+    the way replaced at this beat), then ``set_idx``.
+
+    ``rw is None`` is the read path, B5's probe: it reports no evictions
+    (``evict`` and ``vic_tag`` are None — the read path's contract is a
+    dirty-free state), and a dirty way stays dirty only while every beat
+    that touches it hits, as ``_tag_round`` keeps it.
+    """
+    from repro_torch.kernels.cache_lookup import kernel as cl
+
+    num_sets, ways = state.tags.shape
+    set_idx = lids % num_sets
+    valid = state.valid.to(torch.int32)
+    if rw is None:
+        hit, way, tags, valid, age, _ = cl.cache_probe(
+            lids, state.tags, valid, state.age, state.clock, limit=limit)
+        hit = hit != 0
+        slot = set_idx * ways + way
+        missed = torch.zeros(num_sets * ways, dtype=torch.int32,
+                             device=lids.device).scatter_reduce_(
+            0, slot, (~hit).to(torch.int32), "amax")
+        dirty = state.dirty & (missed.view(num_sets, ways) == 0)
+        return (tags, valid != 0, age, dirty), hit, way, None, None, set_idx
+    hit, way, evict, vic_tag, tags, valid, age, dirty, _ = cl.cache_probe_rw(
+        lids, rw, state.tags, valid, state.age,
+        state.dirty.to(torch.int32), state.clock, write_back=write_back,
+        limit=limit)
+    return ((tags, valid != 0, age, dirty != 0), hit != 0, way, evict != 0,
+            vic_tag, set_idx)
+
+
+# ---------------------------------------------------------------------------
+# Pass 2 — value reconstruction
+# ---------------------------------------------------------------------------
+
+def _resolve_last_writes(line_arr: torch.Tensor,
+                         val_arr: torch.Tensor) -> torch.Tensor:
+    """Per-line forward fill over *position-ordered* entries.
+
+    ``line_arr[k]`` is entry k's line; ``val_arr[k]`` is its value when it
+    is a write record and -1 when it is a query. Entries must already be
+    in position order (the callers build them in arrival order, virtual
+    writes first). Returns, per entry, the value of the latest record on
+    the same line at or before it (-1 if none).
+
+    A stable sort on the line key alone groups lines while preserving
+    position order; the per-line fill is then one global running max
+    (``cummax``) of record row-indices after lifting each line's rows by a
+    disjoint offset.
+    """
+    m = line_arr.shape[0]
+    if m == 0:
+        return line_arr.new_empty(0)
+    order = torch.sort(line_arr, stable=True).indices
+    line_o, val_o = line_arr[order], val_arr[order]
+    gid = torch.zeros(m, dtype=torch.int64, device=line_arr.device)
+    gid[1:] = (line_o[1:] != line_o[:-1]).long().cumsum(0)
+    ridx = torch.where(val_o >= 0, torch.arange(m, device=line_arr.device),
+                       -1)
+    lift = gid * (m + 1)
+    ffill = torch.cummax(ridx + lift, 0).values - lift
+    res = torch.where(ffill >= 0, val_o[ffill.clamp(min=0)], -1)
+    out = torch.empty_like(res)
+    out[order] = res
+    return out
+
+
+def _virtual_writes(state, num_sets: int, dirty_only: bool):
+    """Pre-trace line values resident in the cache, as (line, flat-way)
+    pairs. ``dirty_only``: clean ways mirror the table (the coherence
+    invariant), so only dirty ways carry values the table does not."""
+    mask = state.valid & state.dirty if dirty_only else state.valid
+    ways = mask.shape[1]
+    flat = torch.nonzero(mask.reshape(-1)).squeeze(1)
+    lines = state.tags.reshape(-1).long()[flat] * num_sets + flat // ways
+    return lines, flat
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+def simulate_trace_parallel(state, line_ids, table: torch.Tensor):
+    """Set-parallel equivalent of ``cache_engine.simulate_trace_seq``.
+
+    Bit-identical final state / hits / lines. Requires line ids in
+    ``[0, 2^31)`` (a negative id raises ``ValueError``) and a dirty-free
+    starting state (the read path has no write-back port — the same
+    contract as ``cache_engine.lookup``; the auto dispatcher checks and
+    falls back). An id past the table reads its last row, as the
+    reference's clip does. The state, ids and table lie on one device.
+    """
+    from repro_torch.core.cache_engine import CacheState
+    from repro_torch.core.controller import scatter_set_last
+
+    lids = _ids(line_ids, state.tags.device)
+    n = lids.shape[0]
+    elems = state.data.shape[-1]
+    if n == 0:
+        return (state, torch.zeros(0, dtype=torch.bool, device=lids.device),
+                state.data.new_zeros((0, elems)))
+    num_sets, ways = state.tags.shape
+
+    (tags, valid, age, dirty), hit, way, _, _, set_idx = tag_pipeline(
+        state, lids, None, write_back=False)
+
+    # Clean coherent state ⇒ every hit serves exactly the table row, and
+    # every miss fills from it: lines == table[lids] wholesale.
+    lines = table.index_select(
+        0, lids.clamp(0, table.shape[0] - 1)).to(state.data.dtype)
+    data = scatter_set_last(state.data.reshape(num_sets * ways, elems),
+                            set_idx * ways + way, lines)
+    final = CacheState(tags=tags, valid=valid, age=age,
+                       data=data.reshape(state.data.shape),
+                       clock=state.clock + n, dirty=dirty)
+    return final, hit, lines
+
+
+def simulate_trace_rw_parallel(state, line_ids, rw, write_lines, table, *,
+                               write_back: bool):
+    """Set-parallel equivalent of ``cache_engine.simulate_trace_rw_seq``.
+
+    Pass 1 resolves hits/ways/evictions; pass 2 reconstructs values: the
+    line a read observes is the latest same-line write before it (trace
+    write, or the pre-trace content of an initially dirty way, else the
+    original table row — clean ways mirror the table by the coherence
+    invariant), victim flushes carry the same resolved value, and the
+    final table applies flush/write-through events latest-wins per line.
+
+    Requires every id in ``[0, table_rows)`` (any other raises
+    ``ValueError``) and matching table/data/payload dtypes, all on one
+    device — the auto dispatcher in ``cache_engine`` checks all of this
+    and falls back.
+    """
+    from repro_torch.core.cache_engine import CacheState
+    from repro_torch.core.controller import scatter_set_last
+
+    dev = state.tags.device
+    lids = _ids(line_ids, dev)
+    n = lids.shape[0]
+    elems = state.data.shape[-1]
+    if n == 0:
+        return (state, table, torch.zeros(0, dtype=torch.bool, device=dev),
+                state.data.new_zeros((0, elems)))
+    num_sets, ways = state.tags.shape
+    rows = table.shape[0]
+    is_w = torch.as_tensor(rw).to(dev).reshape(-1) != 0
+
+    # Pass 1, with the ids held to the table.
+    (tags, valid, age, dirty), hit, way, evict, vic_tag, set_idx = \
+        tag_pipeline(state, lids, is_w, write_back=write_back,
+                     limit=min(rows, 1 << 31))
+
+    # --- value resolution (pure copies, bit-exact) ------------------------
+    # Value space: trace write payloads [0, n) ++ pre-trace way contents
+    # [n, n + sets*ways).
+    wl = write_lines.reshape(n, elems)
+    data0 = state.data.reshape(num_sets * ways, elems)
+    virt_lines, virt_flat = _virtual_writes(state, num_sets,
+                                            dirty_only=True)
+    e_pos = torch.nonzero(evict).squeeze(1)
+    vic_line = vic_tag.index_select(0, e_pos).long() * num_sets \
+        + set_idx.index_select(0, e_pos)
+
+    # Build the entry list already in position order: virtual writes
+    # first (pre-trace), then one entry per beat — a write is a record
+    # (its own payload index), a read is a query — with each dirty
+    # eviction's flush query slotted right beside its beat. Same-position
+    # entries are always on different lines, so their relative order is
+    # immaterial. Every index below is distinct.
+    nv = virt_lines.shape[0]
+    pos = torch.arange(n, device=dev)
+    slot = pos + nv
+    slot[1:] += evict[:-1].long().cumsum(0)
+    ev_slot = slot.index_select(0, e_pos) + 1
+    m = nv + n + e_pos.shape[0]
+    line_arr = torch.empty(m, dtype=torch.int64, device=dev)
+    val_arr = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    line_arr[:nv] = virt_lines
+    val_arr[:nv] = n + virt_flat
+    line_arr[slot] = lids
+    val_arr[slot] = torch.where(is_w, pos, -1)
+    line_arr[ev_slot] = vic_line
+    lw_all = _resolve_last_writes(line_arr, val_arr)
+
+    def resolve(lw_idx):
+        """Gather values for resolved last-write indices (≥ 0)."""
+        real = lw_idx < n
+        from_trace = wl.index_select(0, lw_idx.clamp(max=n - 1))
+        from_ways = data0.index_select(0, (lw_idx - n).clamp(min=0))
+        return torch.where(real[:, None], from_trace,
+                           from_ways.to(wl.dtype))
+
+    # A beat's line: its latest same-line write (a write's own payload),
+    # else the original table row.
+    lw_beat = lw_all.index_select(0, slot)
+    lines = torch.where((lw_beat >= 0)[:, None],
+                        resolve(lw_beat.clamp(min=0)),
+                        table.index_select(0, lids).to(wl.dtype))
+
+    # Final Data RAM: the last beat to touch each way leaves its line.
+    data = scatter_set_last(data0, set_idx * ways + way, lines)
+
+    # Final table: victim flushes (a dirty way was written — lw exists)
+    # plus, under write-through, every trace write; latest event per line
+    # wins. The events go in position order (evictions come in it), so
+    # ``scatter_set_last``'s latest-in-array-order is the latest position.
+    flush_vals = resolve(lw_all.index_select(0, ev_slot).clamp(min=0))
+    if write_back:
+        ev_line, ev_vals = vic_line, flush_vals
+    else:
+        w_pos = torch.nonzero(is_w).squeeze(1)
+        order = torch.sort(torch.cat([e_pos, w_pos]), stable=True).indices
+        ev_line = torch.cat([vic_line, lids.index_select(0, w_pos)])[order]
+        ev_vals = torch.cat([flush_vals, wl.index_select(0, w_pos)])[order]
+    new_table = table
+    if ev_line.numel():
+        # Clip like access_rw does. Trace-installed victims are in-bounds
+        # by the id check; this only fires on forced-parallel calls with
+        # out-of-range resident dirty lines (where auto would have fallen
+        # back to the sequential path).
+        new_table = scatter_set_last(table, ev_line.clamp(0, rows - 1),
+                                     ev_vals)
+
+    final = CacheState(tags=tags, valid=valid, age=age,
+                       data=data.reshape(state.data.shape),
+                       clock=state.clock + n, dirty=dirty)
+    return final, new_table, hit, lines
+
+
+def _clean_ways_coherent(state, table) -> bool:
+    """The coherence precondition of the value-reconstruction pass: every
+    valid *clean* way's data must mirror the table row it caches (and the
+    cached line must exist in this table). True for any state/table pair
+    produced against the same table lineage by this module; a state
+    warmed against a *different* table fails and must take the
+    sequential path. NaNs compare unequal, which conservatively falls
+    back."""
+    num_sets = state.tags.shape[0]
+    clean = state.valid & ~state.dirty
+    if not bool(clean.any()):
+        return True
+    lines = state.tags.long() * num_sets + torch.arange(
+        num_sets, device=state.tags.device)[:, None]
+    lo, hi = torch.stack(torch.aminmax(lines[clean])).tolist()
+    if hi >= table.shape[0] or lo < 0:
+        return False
+    rows = table[lines.clamp(0, table.shape[0] - 1)]
+    mismatch = (rows != state.data).any(dim=-1)
+    return not bool((mismatch & clean).any())
+
+
+def auto_parallel_ok(state, line_ids, *, rw=None, write_lines=None,
+                     table=None, rw_path: bool = False) -> bool:
+    """Dispatcher predicate: can this call take the set-parallel path
+    with bit-identical results? Concrete inputs, big enough to matter,
+    and the per-path preconditions — read: dirty-free state and no
+    negative id; rw: in-bounds trace *and* resident-dirty line ids +
+    uniform dtypes; both: clean resident ways coherent with the passed
+    table (:func:`_clean_ways_coherent`). The answer depends on these
+    alone, never on a kernel build or launch."""
+    if not (is_concrete(line_ids) and is_concrete(state.tags)):
+        return False
+    lids = _ids(line_ids, state.tags.device)
+    n = lids.shape[0]
+    if n < MIN_PARALLEL_TRACE:
+        return False
+    num_sets = state.tags.shape[0]
+    if not rw_path:
+        if table is not None and not is_concrete(table):
+            return False
+        if table is not None and table.dtype != state.data.dtype:
+            return False
+        if bool(state.dirty.any()):
+            return False
+        # Negative ids wrap python-style through the sequential walk; the
+        # parallel path refuses them — keep them sequential.
+        if int(lids.min()) < 0:
+            return False
+        return table is None or _clean_ways_coherent(state, table)
+    if not (is_concrete(rw) and is_concrete(write_lines)
+            and is_concrete(table)):
+        return False
+    if not (table.dtype == state.data.dtype == write_lines.dtype):
+        return False
+    lo, hi = torch.stack(torch.aminmax(lids)).tolist()
+    if not (lo >= 0 and hi < table.shape[0]):
+        return False
+    # Resident dirty lines flush during the trace — their targets must be
+    # real table rows (the sequential path would clip; we fall back).
+    virt_lines, _ = _virtual_writes(state, num_sets, dirty_only=True)
+    if virt_lines.numel():
+        lo, hi = torch.stack(torch.aminmax(virt_lines)).tolist()
+        if lo < 0 or hi >= table.shape[0]:
+            return False
+    return _clean_ways_coherent(state, table)
 
 
 # ---------------------------------------------------------------------------
@@ -52,12 +440,12 @@ def simulate_dram_sched_fast(addrs, timings, sched, rw=None, *, trace=None):
       (:func:`_sched_fast_cap`): forced picks interleave state changes
       mid-drain, which couples the drain order to the bypass counters.
 
-    ``trace`` (the lifecycle event stream) is ROADMAP A5.3: one that is
-    not ``None`` raises ``NotImplementedError``.
+    ``trace`` keeps both hot paths untouched: the timing run completes
+    first, then :func:`repro_torch.core.telemetry.replay_sched_events`
+    reconstructs the oracle's event stream from ``service_order``.
     """
-    from repro_torch.core.timing import _sched_result, refuse_trace
+    from repro_torch.core.timing import _sched_result
 
-    refuse_trace(trace)
     addrs = np.asarray(addrs, dtype=np.int64).ravel()
     n = addrs.size
     if n == 0:
@@ -69,8 +457,13 @@ def simulate_dram_sched_fast(addrs, timings, sched, rw=None, *, trace=None):
         key_span = int(rows.max()) + 2 if n else 2
         if key_span < (1 << 61) // max(int(timings.num_banks), 1):
             res = _sched_fast_nocap(n, rows, banks, timings, sched, rw_arr)
+            if trace is not None:
+                from repro_torch.core import telemetry
+                telemetry.replay_sched_events(addrs, timings, sched,
+                                              rw_arr, res, trace)
             return res
-    return _sched_fast_cap(addrs, n, rows, banks, timings, sched, rw_arr)
+    return _sched_fast_cap(addrs, n, rows, banks, timings, sched, rw_arr,
+                           trace=trace)
 
 
 def _sched_fast_nocap(n, rows, banks, timings, sched, rw_arr):
@@ -300,7 +693,8 @@ def _sched_fast_nocap(n, rows, banks, timings, sched, rw_arr):
                          t_rfc, timings, np.asarray(out_l, np.int64))
 
 
-def _sched_fast_cap(addrs, n, rows, banks, timings, sched, rw_arr):
+def _sched_fast_cap(addrs, n, rows, banks, timings, sched, rw_arr, *,
+                    trace=None):
     """Starvation-budget event walk (``frfcfs_cap``, and the fallback
     for degenerate packed-key ranges): a vectorized frontier scan with
     one python event per serviced miss or forced pick. Forced picks
@@ -576,6 +970,10 @@ def _sched_fast_cap(addrs, n, rows, banks, timings, sched, rw_arr):
         grow = chunk * 2 if take == chunk else 32
     res = _sched_result(n_first, n_hit, n_conflict, n, turn, n_ref,
                         t_rfc, timings, out)
+    if trace is not None:
+        from repro_torch.core import telemetry
+        telemetry.replay_sched_events(addrs, timings, sched, rw_arr, res,
+                                      trace)
     return res
 
 
@@ -606,13 +1004,14 @@ def simulate_arrivals_fast(addrs, timings, sched, rw=None, *,
     only at idle jumps, exact integer offset) exactly like the oracle,
     so batched integer cost sums land on bit-identical timestamps.
 
-    ``trace`` (the lifecycle event stream) is ROADMAP A5.3: one that is
-    not ``None`` raises ``NotImplementedError``.
+    ``trace`` keeps both hot paths untouched: the timing run completes
+    first, then :func:`repro_torch.core.telemetry.replay_arrival_events`
+    reconstructs the oracle's event stream from ``grant_order`` /
+    ``granted_port`` / ``service_order``.
     """
     from repro_torch.core.timing import (ServingSimResult, _serving_trace,
-                                         _serving_weights, refuse_trace)
+                                         _serving_weights)
 
-    refuse_trace(trace)
     addrs, n, rw_arr, arr, ports, nports = _serving_trace(
         addrs, timings, rw, arrival_fpga, pe_id, num_ports)
     _serving_weights(nports, arb_policy, weights)   # validate up front
@@ -634,6 +1033,11 @@ def simulate_arrivals_fast(addrs, timings, sched, rw=None, *,
         res = _arrivals_fast_multi(addrs, n, timings, sched, rw_arr, arr,
                                    ports, nports, arb_policy, weights,
                                    ServingSimResult)
+    if trace is not None:
+        from repro_torch.core import telemetry
+        telemetry.replay_arrival_events(
+            addrs, timings, sched, rw_arr, arrival_fpga=arrival_fpga,
+            pe_id=pe_id, num_ports=num_ports, result=res, trace=trace)
     return res
 
 
@@ -1381,16 +1785,17 @@ def simulate_faults_fast(addrs, timings, sched, rw=None, *,
     — rare by construction — fall back to the scalar hash, which is
     the same wrapping arithmetic.
 
-    ``trace`` (the lifecycle event stream) is ROADMAP A5.3: one that is
-    not ``None`` raises ``NotImplementedError``.
+    ``trace`` keeps this hot path untouched: the timing run completes
+    first, then :func:`repro_torch.core.telemetry.replay_fault_events`
+    reconstructs the oracle's event stream from the recorded
+    permutations plus the replayable fault draws.
     """
     import heapq
 
     from repro_torch.core import faults as F
     from repro_torch.core.timing import (FaultSimResult, _serving_trace,
-                                         _serving_weights, refuse_trace)
+                                         _serving_weights)
 
-    refuse_trace(trace)
     fc = faults
     addrs, n, rw_arr, arr, ports, nports = _serving_trace(
         addrs, timings, rw, arrival_fpga, pe_id, num_ports)
@@ -1679,4 +2084,10 @@ def simulate_faults_fast(addrs, timings, sched, rw=None, *,
         granted_port=granted_port[:granted],
         idle_dram_cycles=idle,
         fault=st, attempts=attempts_np, dropped=dropped)
+    if trace is not None:
+        from repro_torch.core import telemetry
+        telemetry.replay_fault_events(
+            addrs, timings, sched, rw_arr, faults=fc, channel=channel,
+            arrival_fpga=arrival_fpga, pe_id=pe_id, num_ports=num_ports,
+            result=res, trace=trace)
     return res

@@ -9,11 +9,12 @@ decoded in lockstep (greedy). Prefill attention is kernel B6 on the GPU,
 and the embedding lookups of prefill and decode go through the
 scheduler's sort (B1) and row gather (B2).
 
-The reference also replays each served batch's KV access stream
-(``kv_trace``) through ``MemoryController.simulate`` to report modeled
-memory latency per tenant. The simulator is not ported yet (ROADMAP A5),
-so ``serve`` leaves the ``modeled_*`` fields of ``ServeStats`` at None;
-``kv_trace`` itself is here and equals the reference's.
+Each served batch also drives the *modeled* memory system: the KV-cache
+access stream of prefill + lockstep decode (``kv_trace``) is replayed
+through ``MemoryController.simulate`` (numpy on the host), so a serve run
+reports modeled p50/p95/p99 memory sojourn per tenant next to the
+functional outputs (``model_memory``); with ``slo_cycles`` also each
+tenant's SLO attainment and the attribution component to blame.
 
 Demo: ``python -m repro_torch.launch.serve --arch yi-34b --smoke
 --device cpu`` (the default device is the GPU).
@@ -31,6 +32,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core.config import MemoryControllerConfig, SchedulerConfig
+from repro_torch.core.controller import MemoryController
 from repro_torch.core.scheduler import form_batches
 from repro_torch.models.lm import build_lm
 
@@ -60,14 +62,18 @@ class ServeStats:
     # its tokens, so both include the device's work.
     prefill_s: float = 0.0
     decode_s: float = 0.0
-    # Modeled memory-system latency (FPGA cycles) of the KV access stream:
-    # None until MemoryController.simulate is ported (ROADMAP A5).
-    modeled_p50_cycles: Optional[float] = None
-    modeled_p95_cycles: Optional[float] = None
-    modeled_p99_cycles: Optional[float] = None
-    modeled_makespan_cycles: Optional[float] = None
+    # modeled memory-system latency (FPGA cycles) of the KV access stream
+    modeled_p50_cycles: float = 0.0
+    modeled_p95_cycles: float = 0.0
+    modeled_p99_cycles: float = 0.0
+    modeled_makespan_cycles: float = 0.0
     modeled_per_tenant: Dict[int, dict] = dataclasses.field(
         default_factory=dict)
+    # per-tenant SLO attainment + cycle-attribution blame (populated
+    # only when the server was built with ``slo_cycles``): tenant ->
+    # {n, attainment, violations, dominant_blame} where dominant_blame
+    # is the attribution component (telemetry.COMPONENTS) contributing
+    # the most cycles to that tenant's violating requests.
     modeled_slo_attainment: Dict[int, dict] = dataclasses.field(
         default_factory=dict)
 
@@ -76,9 +82,9 @@ class Server:
     """Batched prefill + lockstep decode with scheduler-based admission.
 
     Params are drawn on ``device`` from ``torch.Generator(device)`` seeded
-    0. ``mem``, ``arb_policy``, ``arb_weights`` and ``slo_cycles`` are the
-    reference's settings of the modeled-memory replay, kept for when the
-    simulator is ported; ``decode_interval_cycles`` spaces ``kv_trace``.
+    0. ``mem``, ``arb_policy``, ``arb_weights`` and ``slo_cycles`` set the
+    modeled-memory replay (``model_memory``); ``decode_interval_cycles``
+    spaces ``kv_trace``.
     """
 
     def __init__(self, arch: str, *, smoke: bool = False, mesh=None,
@@ -95,10 +101,14 @@ class Server:
         self.device = torch.device(device)
         self.lm = build_lm(self.cfg, mesh, device=self.device)
         self.sched = sched or SchedulerConfig(batch_size=8, timeout_cycles=32)
-        self.mem = mem or MemoryControllerConfig()
+        self.controller = MemoryController(mem or MemoryControllerConfig(),
+                                           device=self.device)
         self.arb_policy = arb_policy
         self.arb_weights = arb_weights
         self.decode_interval_cycles = int(decode_interval_cycles)
+        #: modeled per-request sojourn SLO (FPGA cycles). Setting it
+        #: turns on lifecycle tracing of the KV replay so the serve
+        #: stats carry per-tenant attainment + attribution blame.
         self.slo_cycles = None if slo_cycles is None else float(slo_cycles)
         self.params = self.lm.init(
             torch.Generator(self.device).manual_seed(0))
@@ -188,11 +198,63 @@ class Server:
                 np.asarray(rw, np.int32)[order],
                 np.asarray(arr, np.float64)[order])
 
+    def model_memory(self, batches: List[List[Request]],
+                     stats: ServeStats) -> None:
+        """Replay the KV stream through the memory controller's
+        open-loop serving pipeline and record modeled latency.
+
+        With ``slo_cycles`` set, the replay runs under a
+        :class:`~repro_torch.core.telemetry.TraceRecorder` and each
+        tenant's SLO attainment is attributed: violating requests'
+        sojourns are decomposed
+        (:class:`~repro_torch.core.telemetry.CycleAttribution`) and the
+        dominant component — the answer to "*why* is this tenant missing
+        its SLO" (arbitration starvation vs reorder slip vs refresh vs
+        replay ...) — lands in the stats.
+        """
+        pe, rows, rw, arr = self.kv_trace(batches)
+        if rows.size == 0:
+            return
+        trace = None
+        if self.slo_cycles is not None:
+            from repro_torch.core.telemetry import TraceRecorder
+            trace = TraceRecorder()
+        res = self.controller.simulate(
+            pe, rows, rw, KV_PAGE_BYTES,
+            arbiter_policy=self.arb_policy, weights=self.arb_weights,
+            arrival_cycle=arr, open_loop=True, trace=trace)
+        s = res.serving
+        stats.modeled_p50_cycles = s.p50_sojourn
+        stats.modeled_p95_cycles = s.p95_sojourn
+        stats.modeled_p99_cycles = s.p99_sojourn
+        stats.modeled_makespan_cycles = res.makespan_fpga_cycles
+        stats.modeled_per_tenant = s.per_port
+        if trace is not None:
+            from repro_torch.core.telemetry import CycleAttribution
+            att = CycleAttribution.from_pipeline(res, trace)
+            for p in np.unique(att.pe_id):
+                m = att.pe_id == p
+                viol = m & (att.sojourn > self.slo_cycles)
+                blame = None
+                if viol.any():
+                    blame = max(
+                        ((k, float(v[viol].sum()))
+                         for k, v in att.components.items()),
+                        key=lambda kv: kv[1])[0]
+                stats.modeled_slo_attainment[int(p)] = {
+                    "n": int(m.sum()),
+                    "violations": int(viol.sum()),
+                    "attainment": float(1.0 - viol.sum() / m.sum()),
+                    "dominant_blame": blame,
+                }
+
     def serve(self, requests: List[Request]) -> ServeStats:
         stats = ServeStats()
         t0 = time.perf_counter()
-        for batch in self.admit(requests):
+        batches = self.admit(requests)
+        for batch in batches:
             self.run_batch(batch, stats)
+        self.model_memory(batches, stats)
         stats.wall_s = time.perf_counter() - t0
         return stats
 
@@ -205,8 +267,8 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--slo-cycles", type=float, default=None,
-                    help="modeled sojourn SLO (kept for the simulator, "
-                         "ROADMAP A5)")
+                    help="modeled sojourn SLO; turns on per-tenant "
+                         "attainment attribution")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the GPU)")
     args = ap.parse_args()
@@ -227,8 +289,15 @@ def main() -> None:
           f"{stats.prefill_tokens} prefill tokens, {stats.wall_s:.1f}s "
           f"on {server.device} (prefill {stats.prefill_s:.3f}s, decode "
           f"{stats.decode_s:.3f}s)")
-    print("[serve] modeled KV latency: not modeled (MemoryController."
-          "simulate is not ported yet)")
+    print(f"[serve] modeled KV latency (FPGA cycles): "
+          f"p50={stats.modeled_p50_cycles:.1f} "
+          f"p95={stats.modeled_p95_cycles:.1f} "
+          f"p99={stats.modeled_p99_cycles:.1f}")
+    for p, rec in sorted(stats.modeled_slo_attainment.items()):
+        print(f"[serve] tenant {p}: SLO attainment "
+              f"{100 * rec['attainment']:.1f}% "
+              f"({rec['violations']}/{rec['n']} violations, "
+              f"blame={rec['dominant_blame']})")
     print(f"[serve] sample output: {reqs[0].output}")
 
 

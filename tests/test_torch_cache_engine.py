@@ -117,13 +117,28 @@ def test_simulate_trace_matches_reference(cfg, engine, warm, rng):
 
 
 def test_parallel_engine_is_not_ported_yet():
-    st0 = tce.init_cache(CacheConfig(), D, device="cpu")
-    ids, table = torch.zeros(3, dtype=torch.int32), torch.zeros((8, D))
-    with pytest.raises(NotImplementedError, match="A5"):
-        tce.simulate_trace(st0, ids, table, engine="parallel")
-    with pytest.raises(NotImplementedError, match="A5"):
-        tce.simulate_trace_rw(st0, ids, ids, torch.zeros((3, D)), table,
-                              config=CacheConfig(), engine="parallel")
+    """The set-parallel engine, which this test once found missing, is
+    ported: ``engine="parallel"`` runs (on the CPU, the kernels' plain
+    versions) and gives the sequential walk's bits; an unknown engine
+    still raises."""
+    cfg = CacheConfig(num_lines=256, associativity=4)
+    st0 = tce.init_cache(cfg, D, device="cpu")
+    ids = torch.tensor([3, 67, 3, 131, 195, 3], dtype=torch.int32)
+    table = torch.arange(256 * D, dtype=torch.float32).reshape(256, D)
+    wl = -table[:6]
+    for got, want in (
+            (tce.simulate_trace(st0, ids, table, engine="parallel"),
+             tce.simulate_trace(st0, ids, table, engine="sequential")),
+            (tce.simulate_trace_rw(st0, ids, ids % 2, wl, table, config=cfg,
+                                   engine="parallel"),
+             tce.simulate_trace_rw(st0, ids, ids % 2, wl, table, config=cfg,
+                                   engine="sequential"))):
+        for g, w in zip(got, want):
+            if isinstance(w, tce.CacheState):
+                for f in dataclasses.fields(w):
+                    assert torch.equal(getattr(g, f.name), getattr(w, f.name))
+            else:
+                assert torch.equal(g, w)
     with pytest.raises(ValueError, match="engine"):
         tce.simulate_trace(st0, ids, table, engine="fast")
 

@@ -152,8 +152,20 @@ def test_simulate_serving_channels(channels, ports, faults):
     assert_same(got, rch.simulate_serving_channels(
         addrs, arr, rw, timings=rt.DDR4_2400, channel_cfg=r_c,
         dram_sched=r_s, faults=r_f, **kw))
-    with pytest.raises(NotImplementedError, match="A5.3"):
-        pch.simulate_serving_channels(addrs, arr, rw, trace=object())
+    # Traced: the same result, and each channel's events equal to the
+    # reference's.
+    from repro.core.telemetry import TraceRecorder as RRec
+    from repro_torch.core.telemetry import TraceRecorder
+    rec, rrec = TraceRecorder(), RRec()
+    assert_same(pch.simulate_serving_channels(
+        addrs, arr, rw, timings=pt.DDR4_2400, channel_cfg=p_c,
+        dram_sched=p_s, faults=p_f, trace=rec, **kw), got)
+    rch.simulate_serving_channels(
+        addrs, arr, rw, timings=rt.DDR4_2400, channel_cfg=r_c,
+        dram_sched=r_s, faults=r_f, trace=rrec, **kw)
+    assert rec.channels.keys() == rrec.channels.keys()
+    for k, ct in rec.channels.items():
+        assert ct.events == rrec.channels[k].events, k
 
 
 @pytest.mark.parametrize("faults", ["storm", "no_ecc_crc", "drops"])

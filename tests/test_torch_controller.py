@@ -328,3 +328,44 @@ def test_unscheduled_add_agrees_with_scheduled(dtype):
     jt, jv = (jnp.asarray(_f32(x)).astype(dtype) for x in (table, vals))
     want = jscatter_ref(jt, jnp.asarray(idx.numpy()), jv, "add")
     _assert_scatter_close(got_off, want, "add", dtype)
+
+
+@pytest.mark.parametrize("sched,cache", [(True, True), (False, False)])
+def test_capture_records_the_references_stream(sched, cache, rng):
+    """A controller with a ``TraceCapture`` records the reference's
+    ``op_counts`` and ``replay_arrays`` for the same gather, cached
+    gather, scatter and bulk calls; without one (``capture=None``) every
+    result is bit-identical."""
+    from repro.core.capture import TraceCapture as JCapture
+    from repro_torch.core.capture import TraceCapture
+    table, idx, vals = _inputs(rng)
+    j, t = _pair(sched, cache, use_pallas=False)
+    ttable, tidx, tvals = _port(table, idx, vals)
+    hot = np.arange(0, VOCAB, 7)
+    jhot = jctl.HotRowCache.build(table, jnp.asarray(hot, jnp.int32))
+    thot = tctl.HotRowCache.build(ttable, hot)
+    kv = rng.standard_normal((4, 300)).astype(np.float32)
+    src = rng.standard_normal(5000).astype(np.float32)
+
+    def calls(mc, tab, ix, vs, hotc, kv, src):
+        return [mc.gather(tab, ix), mc.cached_gather(tab, ix, hotc),
+                mc.scatter(tab, ix, vs), mc.scatter(tab, ix, vs, mode="add"),
+                mc.bulk_read(kv), mc.bulk_write(kv, src[:700],
+                                                offset_elems=123)]
+
+    j.capture, t.capture = JCapture(), TraceCapture()
+    jcalls = calls(j, table, idx, vals, jhot, jnp.asarray(kv),
+                   jnp.asarray(src))
+    traced = calls(t, ttable, tidx, tvals, thot, torch.from_numpy(kv),
+                   torch.from_numpy(src))
+    assert t.capture.op_counts() == j.capture.op_counts()
+    for got, want in zip(t.capture.replay_arrays(4),
+                         j.capture.replay_arrays(4)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert len(t.capture) == len(j.capture) > 0
+    t.capture = None
+    for got, want in zip(calls(t, ttable, tidx, tvals, thot,
+                               torch.from_numpy(kv), torch.from_numpy(src)),
+                         traced):
+        assert torch.equal(got, want)
+    assert torch.equal(traced[0], _port(jcalls[0])[0])

@@ -27,7 +27,7 @@ from repro_torch.kernels.sorted_gather import kernel as sg_kernel
 from repro_torch.kernels.sorted_scatter import kernel as ss_kernel
 
 LIBS = (bs_kernel.LIB, sg_kernel.LIB, ss_kernel.LIB, dc_kernel.LIB,
-        cl_kernel.LIB, fa_kernel.LIB)
+        cl_kernel.LIB, fa_kernel.LIB, cl_kernel.RW_LIB)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -93,27 +93,41 @@ def test_no_source_names_jax_or_the_reference_package():
                                   "sched_fast", "arrivals_fast",
                                   "faults_fast"])
 def test_lifecycle_trace_waits_for_its_slice(call):
-    """Per-request lifecycle tracing (the reference's telemetry) is not
-    ported: a ``trace`` that is not ``None`` raises, naming ROADMAP A5.3."""
+    """Per-request lifecycle tracing, which this test once found refused,
+    is ported: every entry point that takes ``trace=`` records events into
+    the port's own recorder, and the traced result equals the untraced
+    one."""
     from repro_torch.core import DRAMSchedConfig, DDR4_2400, trace_engine
     from repro_torch.core.config import FaultConfig
+    from repro_torch.core.telemetry import ChannelTrace, TraceRecorder
     rows = np.arange(64, dtype=np.int64) % 7
     sched = DRAMSchedConfig(policy="frfcfs", reorder_window=4)
-    with pytest.raises(NotImplementedError, match="A5.3"):
+
+    def run(trace):
         if call.startswith("simulate"):
             arr = np.arange(64.0) if call.endswith("open_loop") else None
-            MemoryController(PAPER_EVAL_CONFIG).simulate(
-                None, rows, None, 4096, arrival_cycle=arr, trace=object())
-        elif call == "sched_fast":
-            trace_engine.simulate_dram_sched_fast(rows * 4096, DDR4_2400,
-                                                  sched, trace=object())
-        elif call == "arrivals_fast":
-            trace_engine.simulate_arrivals_fast(rows * 4096, DDR4_2400,
-                                                sched, trace=object())
-        else:
-            trace_engine.simulate_faults_fast(
-                rows * 4096, DDR4_2400, sched, trace=object(),
-                faults=FaultConfig(seed=1, transient_ber=0.1))
+            return MemoryController(PAPER_EVAL_CONFIG).simulate(
+                None, rows, None, 4096, arrival_cycle=arr, trace=trace)
+        trace = None if trace is None else ChannelTrace()
+        kw = {"faults": FaultConfig(seed=1, transient_ber=0.1)} \
+            if call == "faults_fast" else {}
+        fast = {"sched_fast": trace_engine.simulate_dram_sched_fast,
+                "arrivals_fast": trace_engine.simulate_arrivals_fast,
+                "faults_fast": trace_engine.simulate_faults_fast}[call]
+        res = fast(rows * 4096, DDR4_2400, sched, trace=trace, **kw)
+        return res, trace
+
+    rec = TraceRecorder()
+    traced, base = run(rec), run(None)
+    if call.startswith("simulate"):
+        assert rec.n_events > 0
+        assert traced.makespan_fpga_cycles == base.makespan_fpga_cycles
+        assert traced.breakdown() == base.breakdown()
+    else:
+        assert len(traced[1]) > 0
+        assert traced[0].total_fpga_cycles == base[0].total_fpga_cycles
+        assert np.array_equal(traced[0].service_order,
+                              base[0].service_order)
 
 
 def test_imports_without_nvcc_or_triton(tmp_path):
@@ -170,7 +184,8 @@ def test_controller_runs_on_the_gpu_unless_asked():
 
 @pytest.mark.parametrize("call", ["sort", "gather", "scatter_set",
                                   "scatter_add", "dma_copy", "cache_probe",
-                                  "cache_service", "flash_attention"])
+                                  "cache_probe_rw", "cache_service",
+                                  "flash_attention"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
     """For a tensor on another device than the CPU the wrappers launch the
     kernel or raise; on the ``meta`` device (no data, no kernel) they raise
@@ -196,6 +211,10 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
             if call == "cache_probe":
                 cl_kernel.cache_probe(sidx, state.tags, state.age,
                                       state.age, state.clock)
+            elif call == "cache_probe_rw":
+                cl_kernel.cache_probe_rw(sidx, sidx, state.tags, state.age,
+                                         state.age, state.age, state.clock,
+                                         write_back=True)
             else:
                 cl_ops.cache_service(table, sidx, state)
         else:

@@ -109,9 +109,10 @@ def test_serve_gives_the_reference_greedy_tokens(arch, ragged):
         assert getattr(tstats, f) == getattr(jstats, f), f
     assert tstats.batches == 2 and tstats.requests == 12
     for f in ("modeled_p50_cycles", "modeled_p95_cycles",
-              "modeled_p99_cycles", "modeled_makespan_cycles"):
-        assert getattr(tstats, f) is None, f
-    assert tstats.modeled_per_tenant == {} == tstats.modeled_slo_attainment
+              "modeled_p99_cycles", "modeled_makespan_cycles",
+              "modeled_per_tenant", "modeled_slo_attainment"):
+        assert getattr(tstats, f) == getattr(jstats, f), f
+    assert tstats.modeled_p50_cycles > 0 and tstats.modeled_per_tenant
     assert tstats.prefill_s > 0 and tstats.decode_s > 0
 
 
@@ -132,4 +133,29 @@ def test_cli_serves_on_the_cpu(monkeypatch, capsys):
     tserve.main()
     out = capsys.readouterr().out
     assert "3 requests in 1 batches" in out and "on cpu" in out
-    assert "not modeled" in out
+    assert "[serve] modeled KV latency (FPGA cycles): p50=" in out
+
+
+@pytest.mark.parametrize("mix", ["chip", "cli"])
+@pytest.mark.parametrize("slo", [None, 20000.0])
+def test_model_memory_matches_reference(mix, slo):
+    """``Server.model_memory`` (the KV stream replayed through the
+    modeled controller, with SLO attainment and blame under ``slo_cycles``)
+    gives the reference's fields at the chip script's mix (12 requests of
+    1024 tokens, 16 new tokens, every 3 cycles) and at the CLI's default
+    (32 tokens, 8 new), on the smoke config on both sides."""
+    prompt, new = (1024, 16) if mix == "chip" else (32, 8)
+    jsrv = jserve.Server("yi-34b", smoke=True, slo_cycles=slo)
+    tsrv = tserve.Server("yi-34b", smoke=True, slo_cycles=slo, device="cpu")
+    reqs = [dict(rid=i, prompt=np.zeros(prompt, np.int32),
+                 max_new_tokens=new, arrival_cycle=i * 3) for i in range(12)]
+    jstats, tstats = jserve.ServeStats(), tserve.ServeStats()
+    jsrv.model_memory(jsrv.admit([jserve.Request(**r) for r in reqs]),
+                      jstats)
+    tsrv.model_memory(tsrv.admit([tserve.Request(**r) for r in reqs]),
+                      tstats)
+    for f in ("modeled_p50_cycles", "modeled_p95_cycles",
+              "modeled_p99_cycles", "modeled_makespan_cycles",
+              "modeled_per_tenant", "modeled_slo_attainment"):
+        assert getattr(tstats, f) == getattr(jstats, f), f
+    assert bool(tstats.modeled_slo_attainment) == (slo is not None)

@@ -244,10 +244,24 @@ def test_refresh_quirk_is_copied():
     "dram_sched", "dram_sched_seq", "arrivals", "arrivals_seq", "faults",
     "faults_seq"])
 def test_trace_waits_for_telemetry(call):
+    """Tracing, which this test once found refused, is ported: each entry
+    point with a ``ChannelTrace`` gives the untraced result and the same
+    event stream as the reference's with ``==``."""
+    from repro.core.telemetry import ChannelTrace as RTrace
+    from repro_torch.core.telemetry import ChannelTrace
     addrs = np.arange(8, dtype=np.int64) * 4096
-    sched = pcfg.DRAMSchedConfig(policy="frfcfs", reorder_window=4)
-    kw = {"faults": pcfg.FaultConfig(seed=1, transient_ber=0.1)} \
+    sched = dict(policy="frfcfs", reorder_window=4)
+    kw = dict(faults=pcfg.FaultConfig(seed=1, transient_ber=0.1)) \
         if call.startswith("faults") else {}
+    rkw = dict(faults=rcfg.FaultConfig(seed=1, transient_ber=0.1)) \
+        if kw else {}
     fn = getattr(pt, f"simulate_{call}")
-    with pytest.raises(NotImplementedError, match="A5.3"):
-        fn(addrs, pt.DDR4_2400, sched, trace=object(), **kw)
+    got_trace, want_trace = ChannelTrace(), RTrace()
+    got = fn(addrs, pt.DDR4_2400, pcfg.DRAMSchedConfig(**sched),
+             trace=got_trace, **kw)
+    assert_same(got, fn(addrs, pt.DDR4_2400, pcfg.DRAMSchedConfig(**sched),
+                         **kw))
+    assert_same(got, getattr(rt, f"simulate_{call}")(
+        addrs, rt.DDR4_2400, rcfg.DRAMSchedConfig(**sched),
+        trace=want_trace, **rkw))
+    assert got_trace.events and got_trace.events == want_trace.events
