@@ -30,10 +30,13 @@ Phases (a failing phase raises and the script exits non-zero):
    probe also with one hot set at the Table I shape, from tied ages and
    with 32768 sets (int32 sort keys in its grouping). The read/write
    probe (``cache_probe_rw``, the set-parallel cache engine's tag walk)
-   bit-equal to its plain version over all nine outputs, under write-back
+   bit-equal to its plain version over all 13 outputs (the walk's nine
+   and the value sources), under write-back
    and write-through, on the cache_trace path's read/write trace from an
-   empty and from a dirty state, with one hot set, from tied ages and on
-   a stream that leaves no dirty way. The
+   empty and from a dirty state, with one hot set, from tied ages, from
+   dirty lines past the table and on a stream that leaves no dirty way.
+   The row resolve bit-equal to its plain version on 16-byte words and
+   on bytes (12-byte rows, a misaligned view). The
    gather also at the serve lookup's shape, one run of 40000, runs across
    its spans, each access width and a misaligned table view; the DMA copy
    at one to eight channels, ragged totals, chunks under 16 bytes and of
@@ -69,9 +72,15 @@ Phases (a failing phase raises and the script exits non-zero):
      ``init_cache`` (B5), then 229,376 beats from the state that left --
      sequence 1's lines read, interleaved beat for beat with sequence 0's
      lines written (bf16 payloads from seed 0) -- under write-back and
-     write-through (``cache_probe_rw``). Each result bit-equal to the same
-     call on CPU copies of the inputs (the plain engine) and ``"auto"`` to
-     ``"parallel"``, which launched each kernel once; hits held to
+     write-through (``cache_probe_rw``, then ``row_resolve`` for the served
+     lines, the Data RAM and the new table: winner rows only). Each
+     result bit-equal to the same call on CPU copies of the inputs (the
+     plain engine) and ``"auto"`` to ``"parallel"``, which launched the
+     probe once and the row resolve once (read) or three times
+     (read/write); on this trace the probe's value sources and the three
+     row resolves bit-equal to their plain versions, and the read/write
+     call's profiler trace free of ``cummax``, ``index_put`` and
+     ``nonzero``; hits held to
      ``hit_rate_oracle`` and ``filter_trace_rw``, the new table to a numpy
      last-writer oracle of the victims ``filter_trace_rw`` lists (and,
      flushed, of the in-order write stream); a 4096-beat prefix of each
@@ -123,8 +132,9 @@ Phases (a failing phase raises and the script exits non-zero):
    kernels' device time without the table's clone; the cache probe's
    kernel alone. The cache path also counts the probe's and
    ``cache_service``'s host syncs (the probe must make one). The
-   read/write probe at the cache_trace path's shape, and each engine
-   call's device time with its kernel's own in it.
+   read/write probe at the cache_trace path's shape, each engine call's
+   device time with its kernels' own in it beside the call's byte bound,
+   and the row resolve at the engine's three calls.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -189,7 +199,8 @@ from repro_torch.models.params import leaves, map_tree  # noqa: E402
 LIBS = {"bitonic_sort": bs_kernel.LIB, "sorted_gather": sg_kernel.LIB,
         "sorted_scatter": ss_kernel.LIB, "dma_copy": dc_kernel.LIB,
         "cache_lookup": cl_kernel.LIB, "flash_attention": fa_kernel.LIB,
-        "cache_probe_rw": cl_kernel.RW_LIB}
+        "cache_probe_rw": cl_kernel.RW_LIB,
+        "row_resolve": cl_kernel.RESOLVE_LIB}
 REPLACES = {"bitonic_sort": "src/repro/kernels/bitonic_sort/kernel.py:85",
             "sorted_gather": "src/repro/kernels/sorted_gather/kernel.py:34",
             "sorted_scatter": "src/repro/kernels/sorted_scatter/kernel.py:38",
@@ -197,13 +208,17 @@ REPLACES = {"bitonic_sort": "src/repro/kernels/bitonic_sort/kernel.py:85",
             "cache_lookup": "src/repro/kernels/cache_lookup/kernel.py:63",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:92",
             # No Pallas kernel: the reference's XLA lax.scan step.
-            "cache_probe_rw": "src/repro/core/trace_engine.py:104"}
+            "cache_probe_rw": "src/repro/core/trace_engine.py:104",
+            # New, no Pallas kernel: the copies that the reference's
+            # set-parallel engine makes with numpy gathers and last-writer
+            # scatters.
+            "row_resolve": "new: src/repro/core/trace_engine.py:418"}
 # The main path that drives each kernel (phase 4); its launches are the
 # ones reported.
 PATH_OF = {"bitonic_sort": "scheduler", "sorted_gather": "scheduler",
            "sorted_scatter": "scheduler", "dma_copy": "bulk",
            "cache_lookup": "cache", "flash_attention": "serve",
-           "cache_probe_rw": "cache_trace"}
+           "cache_probe_rw": "cache_trace", "row_resolve": "cache_trace"}
 SEED = 0
 VOCAB, D_MODEL = 64000, 7168     # yi-34b (src/repro/configs/yi_34b.py), bf16
 BATCH, SEQ = 8, 4096             # one prefill batch of token ids
@@ -505,11 +520,38 @@ def probe_bytes(n: int, sets: int, ways: int) -> int:
     return 4 * n + 2 * (3 * 4 * sets * ways + 4) + 8 * n
 
 
-def probe_rw_bytes(n: int, sets: int, ways: int) -> int:
+def probe_rw_bytes(n: int, sets: int, ways: int, rows: int) -> int:
     """Bytes the read/write probe must move: the line ids and write flags
     read, the state (tags, valid bits, ages, dirty bits, clock) read and
-    written, hits, ways, evictions and victim tags written."""
-    return 5 * n + 2 * (4 * 4 * sets * ways + 4) + 16 * n
+    written, hits, ways, evictions and victim tags written, and the int64
+    value sources written: two a beat, one a way and one a row of the
+    ``rows``-row table."""
+    return 5 * n + 2 * (4 * 4 * sets * ways + 4) + 16 * n \
+        + 8 * (2 * n + sets * ways + rows)
+
+
+def engine_bytes(ct, name: str) -> int:
+    """Bytes one cache_trace engine call must move, each input read once
+    and each output written once: the ids (and write flags and payloads),
+    the state in and out (its Data RAM included), the hits and the served
+    lines out; the read call the table rows its ids name, the read/write
+    call the whole table in and its new copy out."""
+    state = ct["state0"] if name.startswith("read") else ct["warm"]
+    state_bytes = sum(t.numel() * t.element_size() for t in (
+        state.tags, state.valid, state.age, state.dirty, state.data,
+        state.clock))
+    tab = ct["lines_tab"]
+    row = tab.shape[1] * tab.element_size()
+    if name.startswith("read"):
+        ids = ct["ids"]
+        n = ids.numel()
+        return n * ids.element_size() + 2 * state_bytes + n \
+            + n * row + int(torch.unique(ids).numel()) * row
+    ids, rw, payload = ct["rw_ids"], ct["rw"], ct["payload"]
+    n = ids.numel()
+    return n * (ids.element_size() + rw.element_size()) \
+        + payload.numel() * payload.element_size() + 2 * state_bytes + n \
+        + n * row + 2 * tab.numel() * tab.element_size()
 
 
 def rw_trace() -> tuple[np.ndarray, np.ndarray]:
@@ -644,27 +686,32 @@ def check_cache(dev) -> None:
 
 def check_cache_rw(dev, rng) -> None:
     """``cache_probe_rw`` against its plain version over the whole
-    trajectory (hits, ways, evictions, victim tags and the new state) at
-    the Table I shape, under write-back and write-through: the
+    trajectory (hits, ways, evictions, victim tags, the new state and,
+    over the embedding table's lines, the value sources)
+    at the Table I shape, under write-back and write-through: the
     cache_trace path's read/write trace from an empty state, then again
     from the dirty state it left; a stream with one hot set; from tied
     ages (all INT_MAX, and repeats of 0, 1 and 2) with random valid and
-    dirty bits; and a read-only stream that leaves no dirty way."""
+    dirty bits, which hold a line in two ways of a set; from dirty ways
+    whose lines lie past the table or below it (clipped); and a read-only
+    stream that leaves no dirty way."""
     names = ("hits", "ways", "evict", "vic_tag", "tags", "valid", "age",
-             "dirty", "clock")
+             "dirty", "clock", "src", "flush_src", "last", "row_src")
+    rows = VOCAB * D_MODEL // line_elems()
 
     def both(ids_np, rw_np, state, write_back):
         ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
         rw = torch.from_numpy(rw_np.astype(np.int32)).to(dev)
         got = cl_kernel.cache_probe_rw(ids, rw, *state,
-                                       write_back=write_back)
+                                       write_back=write_back, rows=rows)
         want = cl_kernel.cache_probe_rw_plain(ids, rw, *state,
-                                              write_back=write_back)
-        for name, g, w in zip(names, got, want):
+                                              write_back=write_back,
+                                              rows=rows)
+        for name, g, w in zip(names, got, want, strict=True):
             assert g.dtype == w.dtype and torch.equal(g, w), \
                 f"cache_probe_rw {name}, write_back={write_back}, " \
                 f"n={ids.numel()}"
-        return got[4:]
+        return got[4:9]
 
     st0 = init_cache(CACHE_CFG, 1, device=dev)
     empty = (st0.tags, st0.valid.to(torch.int32), st0.age,
@@ -687,7 +734,44 @@ def check_cache_rw(dev, rng) -> None:
                         np.int32)).to(dev)):
             both(ids, rw, (tags, flags[0], age, flags[1],
                            st0.clock.reshape(1) + 5), write_back)
+        far = torch.from_numpy(rng.integers(-3, 2 * rows // sets, shape)
+                               .astype(np.int32)).to(dev)
+        both(ids, rw, (far, flags[0], age, flags[1], st0.clock.reshape(1)),
+             write_back)
         both(ids, np.zeros_like(rw), empty, write_back)
+
+
+def check_row_resolve(dev, gen) -> None:
+    """``row_resolve`` bit-equal to its plain version: 4096 bf16 lines of
+    512 bytes from each kind of source (a payload row, an old way, the
+    fallback's own row or one that ``fallback_rows`` names), on 16-byte
+    words; float32 rows of 12 bytes and a view one element off 16-byte
+    alignment, on bytes; no extra rows; and no rows at all. The main
+    path's three calls are held in the cache_trace phase."""
+    rng = np.random.default_rng(SEED + 3)
+
+    def both(n_out, n, n_extra, n_fb, width, dtype, fb_rows, shift=0):
+        def rand(k):
+            base = torch.randn((k * width + shift,), generator=gen,
+                               device=dev).to(dtype)
+            return base[shift:].view(k, width)
+        payload, extra, fallback = rand(n), rand(n_extra), rand(n_fb)
+        src = torch.from_numpy(rng.integers(-1, n + n_extra, n_out)).to(dev)
+        rows = torch.from_numpy(rng.integers(0, n_fb, n_out)).to(dev) \
+            if fb_rows else None
+        got = cl_kernel.row_resolve(src, payload, extra, fallback, rows)
+        want = cl_kernel.row_resolve_plain(src, payload, extra, fallback,
+                                           rows)
+        assert same_bits(got, want), \
+            f"row_resolve {n_out} rows of {width} {dtype}, fb_rows={fb_rows}"
+
+    for fb_rows in (False, True):
+        both(4096, 3000, 500, 4096 if not fb_rows else 9000, 256,
+             torch.bfloat16, fb_rows)
+    both(999, 300, 40, 999, 3, torch.float32, True)
+    both(1000, 700, 200, 1000, 256, torch.bfloat16, False, shift=1)
+    both(2048, 1500, 0, 2048, 256, torch.bfloat16, False)
+    both(0, 5, 1, 0, 256, torch.bfloat16, False)
 
 
 def check_kernels(dev, gen):
@@ -865,6 +949,8 @@ def check_kernels(dev, gen):
     dma_routes = check_dma(dev, gen)
     errs["dma_copy"] = errs["cache_lookup"] = 0.0   # bit-equal, asserted
     errs["cache_probe_rw"] = 0.0                     # check_cache_rw
+    check_row_resolve(dev, gen)
+    errs["row_resolve"] = 0.0                        # bit-equal, asserted
     torch.cuda.synchronize()
     return errs, mixed, dict(sorted_gather=gather_routes, dma_copy=dma_routes)
 
@@ -1249,6 +1335,95 @@ def table_after(lines_tab, payload, lines, before, rw_lines, rw) -> \
     return out
 
 
+PROBE_RW_OUTPUTS = ("hits", "ways", "evict", "vic_tag", "tags", "valid",
+                    "age", "dirty", "clock", "src", "flush_src", "last",
+                    "row_src")
+# Aten ops and kernel-name parts of the plain value reconstruction (a
+# per-line fill by cummax, last-writer scatters by index_put, nonzero's
+# host syncs) that the read/write engine's winner route runs none of.
+PLAIN_RESOLVE_OPS = ("cummax", "index_put", "nonzero")
+
+
+def profiled_names(fn) -> tuple[set, set]:
+    """The aten ops that one call of ``fn`` runs on the host and the
+    kernels it launches (names before any argument list), from one
+    ``torch.profiler`` trace."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = {e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU}
+    kernels = {e.name.split("(")[0] for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    return ops, kernels
+
+
+def check_value_sources(dev, lines_tab, warm, rw_ids, rw, payload, configs,
+                        runs) -> None:
+    """The cache_trace path's read/write trace from its warm state, under
+    each policy: ``cache_probe_rw`` with ``rows`` bit-equal to its plain
+    version over all 13 outputs; ``row_resolve``'s three calls (served
+    lines, Data RAM, table) bit-equal to its plain version and to the
+    engine's own results in ``runs``; and the engine's call free of the
+    plain reconstruction's ops (``PLAIN_RESOLVE_OPS``), on the host and
+    on the card."""
+    rows, elems = lines_tab.shape
+    args = (rw_ids, rw, warm.tags, warm.valid.to(torch.int32), warm.age,
+            warm.dirty.to(torch.int32), warm.clock)
+    data0 = warm.data.reshape(-1, elems)
+    for policy, cfg in configs.items():
+        wb = policy == "write_back"
+        got = cl_kernel.cache_probe_rw(*args, write_back=wb, rows=rows)
+        want = cl_kernel.cache_probe_rw_plain(*args, write_back=wb,
+                                              rows=rows)
+        for name, g, w in zip(PROBE_RW_OUTPUTS, got, want, strict=True):
+            assert same_bits(g, w), f"cache_probe_rw {name}, {policy}"
+        src, _, last, row_src = got[9:]
+        final, table, _, lines = runs[f"rw {policy} parallel"]
+        for what, call, engine in (
+                ("lines", (src, payload, data0, lines_tab, rw_ids.long()),
+                 lines),
+                ("data", (last, lines, data0[:0], data0),
+                 final.data.reshape(-1, elems)),
+                ("table", (row_src, payload, data0, lines_tab), table)):
+            out = cl_kernel.row_resolve(*call)
+            assert same_bits(out, cl_kernel.row_resolve_plain(*call)), \
+                f"row_resolve {what}, {policy}"
+            assert same_bits(out, engine), f"row_resolve {what}, {policy}: " \
+                "not the engine's"
+        ops, kernels = profiled_names(lambda: simulate_trace_rw(
+            warm, rw_ids, rw, payload, lines_tab, config=cfg,
+            engine="parallel"))
+        assert "aten::sort" in ops, f"{policy}: no host ops traced"
+        for part in PLAIN_RESOLVE_OPS:
+            assert not any(part in x for x in ops | kernels), \
+                f"rw {policy}: {part} ran: {sorted(ops | kernels)}"
+
+
+def cache_trace_inputs(dev, table) -> dict:
+    """The cache_trace path's inputs on ``dev``: ``table`` (the embedding
+    table) as 512-byte lines, sequence 0's token lines (``ids``), the
+    read/write trace of ``rw_trace`` (``rw_ids``, ``rw``) with bf16
+    payloads from seed 0, the empty state at the Table I maximum cache
+    and that cache under each write policy."""
+    rw_ids, rw = (torch.from_numpy(a).to(dev) for a in rw_trace())
+    return dict(
+        lines_tab=table.view(-1, line_elems()),
+        ids=torch.from_numpy(token_lines(prefill_ids()[0])).to(dev),
+        rw_ids=rw_ids, rw=rw,
+        payload=torch.randn((rw_ids.numel(), line_elems()), device=dev,
+                            dtype=torch.bfloat16, generator=torch.Generator(
+                                device=dev).manual_seed(SEED)),
+        state0=init_cache(CACHE_CFG, line_elems(), torch.bfloat16,
+                          device=dev),
+        configs={policy: dataclasses.replace(CACHE_CFG, write_policy=policy)
+                 for policy in ("write_back", "write_through")})
+
+
 def run_cache_trace(dev, table) -> dict:
     """Phase 4, cache_trace path: the set-parallel cache engine on the card
     (``simulate_trace`` and ``simulate_trace_rw``, ``engine="parallel"``
@@ -1259,19 +1434,13 @@ def run_cache_trace(dev, table) -> dict:
     copies of the inputs (the plain engine), to ``hit_rate_oracle`` and
     ``filter_trace_rw`` (hits and victim write-backs), to the sequential
     walk on the CPU over a prefix, and ``"auto"`` to ``"parallel"``."""
-    lines_tab = table.view(-1, line_elems())
+    inputs = cache_trace_inputs(dev, table)
+    lines_tab, ids, rw_ids, rw, payload, state0, configs = (
+        inputs[k] for k in ("lines_tab", "ids", "rw_ids", "rw", "payload",
+                            "state0", "configs"))
+    ids_np, rw_ids_np, rw_np = (a.cpu().numpy() for a in (ids, rw_ids, rw))
     sets = CACHE_CFG.num_sets
-    ids_np = token_lines(prefill_ids()[0])
-    rw_ids_np, rw_np = rw_trace()
-    ids = torch.from_numpy(ids_np).to(dev)
-    rw_ids, rw = (torch.from_numpy(a).to(dev) for a in (rw_ids_np, rw_np))
-    payload = torch.randn((rw_ids.numel(), line_elems()), device=dev,
-                          dtype=torch.bfloat16, generator=torch.Generator(
-                              device=dev).manual_seed(SEED))
-    state0 = init_cache(CACHE_CFG, line_elems(), torch.bfloat16, device=dev)
-    configs = {policy: dataclasses.replace(CACHE_CFG, write_policy=policy)
-               for policy in ("write_back", "write_through")}
-    kernels = ("cache_lookup", "cache_probe_rw")
+    kernels = ("cache_lookup", "cache_probe_rw", "row_resolve")
     runs, seconds, launched = {}, {}, {}
 
     def drive(name, fn):
@@ -1295,14 +1464,19 @@ def run_cache_trace(dev, table) -> dict:
                 engine=engine))
     launches = read_launches("cache_trace")
     assert launches["cache_lookup"] > 0, "B5 did not run on the read trace"
-    assert launched["read auto"] == {"cache_lookup": 1, "cache_probe_rw": 0}
+    assert launched["read auto"] == {"cache_lookup": 1, "cache_probe_rw": 0,
+                                     "row_resolve": 1}
     for policy in configs:
         assert launched[f"rw {policy} auto"] == {"cache_lookup": 0,
-                                                 "cache_probe_rw": 1}
+                                                 "cache_probe_rw": 1,
+                                                 "row_resolve": 3}
         same_run(runs[f"rw {policy} auto"], runs[f"rw {policy} parallel"],
                  f"rw {policy}: auto against parallel")
     same_run(runs["read auto"], runs["read parallel"],
              "read: auto against parallel")
+
+    check_value_sources(dev, lines_tab, warm, rw_ids, rw, payload, configs,
+                        runs)
 
     # The plain engine on CPU copies of the same inputs.
     tab_cpu, st0_cpu = lines_tab.cpu(), cpu_state(state0)
@@ -1382,10 +1556,15 @@ def run_cache_trace(dev, table) -> dict:
             "rw": int(np.bincount(rw_ids_np % sets).max())})
 
 
-def timings_cache_trace(dev, ct) -> dict:
-    """Phase 5 at the cache_trace path: each engine call's device time and
-    its kernels' own (from a profiler trace), and ``cache_probe_rw``
-    alone: its wrapper, device time, plain version and bound."""
+def timings_engine(ct, reps: int = 3) -> dict:
+    """Each cache_trace engine call (``engine="parallel"``: the read trace
+    from ``state0``, the read/write trace from ``warm`` under each
+    policy): its device time and launches from a profiler trace of
+    ``reps`` calls, the probes' and the row resolve's own device time in
+    it, the kernels that took most, the host time (median of ``reps``
+    calls, each ended by a synchronize), the host syncs and the call's
+    byte bound. Public entry points only, so ``kernel_repeat.py`` runs it
+    on another version of the package too."""
     lines_tab, warm, state0 = ct["lines_tab"], ct["warm"], ct["state0"]
     ids, rw_ids, rw, payload = ct["ids"], ct["rw_ids"], ct["rw"], \
         ct["payload"]
@@ -1397,31 +1576,98 @@ def timings_cache_trace(dev, ct) -> dict:
             engine="parallel")
     engine = {}
     for name, call in calls.items():
-        trace = device_trace(call, reps=3)
+        trace = device_trace(call, reps=reps)
+        host = []
+        for _ in range(reps):
+            _, seconds = timed(lambda: (call(), torch.cuda.synchronize()))
+            host.append(seconds * 1e3)
         engine[name] = dict(
             device_ms=trace["ms"], device_launches_per_call=trace["launches"],
+            bound_ms=engine_bytes(ct, name) / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes",
             probe_device_ms=kernels_ms(trace, "cache_probe_kernel"),
             probe_rw_device_ms=kernels_ms(trace, "cache_probe_rw_kernel"),
+            row_resolve_device_ms=kernels_ms(trace, "row_resolve_kernel"),
             top_kernels_ms=dict(collections.Counter(
-                trace["ms_by_kernel"]).most_common(6)))
+                trace["ms_by_kernel"]).most_common(6)),
+            host_ms=statistics.median(host),
+            host_syncs=len(host_syncs(call)))
+    return engine
+
+
+def timings_cache_trace(dev, ct) -> dict:
+    """Phase 5 at the cache_trace path: each engine call's device time and
+    its kernels' own (from a profiler trace), and ``cache_probe_rw``
+    alone: its wrapper, device time, plain version and bound."""
+    lines_tab, warm = ct["lines_tab"], ct["warm"]
+    rw_ids, rw = ct["rw_ids"], ct["rw"]
+    engine = timings_engine(ct)
     sets, ways = warm.tags.shape
     n = rw_ids.numel()
+    rows = lines_tab.shape[0]
     args = (rw_ids, rw, warm.tags, warm.valid.to(torch.int32), warm.age,
             warm.dirty.to(torch.int32), warm.clock)
-    call = lambda: cl_kernel.cache_probe_rw(*args, write_back=True)
+    call = lambda: cl_kernel.cache_probe_rw(*args, write_back=True,
+                                            rows=rows)
     trace = device_trace(call)
     row = dict(
         ms=time_ms(call), device_ms=trace["ms"],
         device_launches_per_call=trace["launches"],
         kernel_device_ms=kernels_ms(trace, "cache_probe_rw_kernel"),
+        keys_device_ms=kernels_ms(trace, "row_keys_to_src_kernel"),
         library_ms=None,
-        bound_ms=probe_rw_bytes(n, sets, ways) / HBM_BYTES_PER_S * 1e3,
+        bound_ms=probe_rw_bytes(n, sets, ways, rows) / HBM_BYTES_PER_S
+        * 1e3,
         bound_by="bytes", host_syncs=len(host_syncs(call)),
         max_beats_per_set=ct["max_beats_per_set"]["rw"],
         plain_ms=time_ms(lambda: cl_kernel.cache_probe_rw_plain(
-            *args, write_back=True), reps=3),
+            *args, write_back=True, rows=rows), reps=3),
         engine=engine)
     return {f"probe_rw {n} beats, {sets} sets x {ways} ways": row}
+
+
+def timings_row_resolve(dev, ct) -> dict:
+    """Phase 5, ``row_resolve`` at the cache_trace path's three calls
+    under write-back (the new table, the served lines, the Data RAM):
+    the wrapper's CUDA-event median, its device time and launches from a
+    profiler trace, the kernel's own, the plain version and the bound
+    (each output row written once, each row it copies and each index
+    read once). The table's call comes first: it is the engine's bound."""
+    lines_tab, warm = ct["lines_tab"], ct["warm"]
+    rows, elems = lines_tab.shape
+    row_bytes = elems * lines_tab.element_size()
+    rw_ids, payload = ct["rw_ids"], ct["payload"]
+    src, _, last, row_src = cl_kernel.cache_probe_rw(
+        rw_ids, ct["rw"], warm.tags, warm.valid.to(torch.int32), warm.age,
+        warm.dirty.to(torch.int32), warm.clock, write_back=True,
+        rows=rows)[9:]
+    data0 = warm.data.reshape(-1, elems)
+    lines = cl_kernel.row_resolve(src, payload, data0, lines_tab,
+                                  rw_ids.long())
+    calls = {
+        f"table {rows} x {row_bytes} B": ((row_src, payload, data0,
+                                           lines_tab), 8),
+        f"lines {src.numel()} x {row_bytes} B": (
+            (src, payload, data0, lines_tab, rw_ids.long()), 16),
+        f"data RAM {last.numel()} x {row_bytes} B": (
+            (last, lines, data0[:0], data0), 8)}
+    out = {}
+    for shape, (args, index_bytes) in calls.items():
+        call = lambda args=args: cl_kernel.row_resolve(*args)
+        trace = device_trace(call)
+        k = args[0].numel()
+        out[shape] = dict(
+            ms=time_ms(call), device_ms=trace["ms"],
+            device_launches_per_call=trace["launches"],
+            kernel_device_ms=kernels_ms(trace, "row_resolve_kernel"),
+            library_ms=None,
+            bound_ms=k * (2 * row_bytes + index_bytes) / HBM_BYTES_PER_S
+            * 1e3, bound_by="bytes",
+            plain_ms=time_ms(lambda args=args: cl_kernel.row_resolve_plain(
+                *args), reps=3))
+    # A yardstick, not the same function: the table's plain copy.
+    out[next(iter(calls))]["clone_ms"] = time_ms(lines_tab.clone)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2454,6 +2700,7 @@ def run(dev) -> None:
                     f"{name} {shape}: {key} {row[key]}"
     t["cache_lookup"] = timings_cache(dev, c)
     t["cache_probe_rw"] = timings_cache_trace(dev, ct)
+    t["row_resolve"] = timings_row_resolve(dev, ct)
     t["flash_attention"] = timings_attention(dev, gen)
     for name, shapes in t.items():
         if name == "flash_attention":
@@ -2472,6 +2719,7 @@ def run(dev) -> None:
                 "dma_copy": next(iter(t["dma_copy"].values())),
                 "cache_lookup": next(iter(t["cache_lookup"].values())),
                 "cache_probe_rw": next(iter(t["cache_probe_rw"].values())),
+                "row_resolve": next(iter(t["row_resolve"].values())),
                 "flash_attention": next(iter(
                     t["flash_attention"].values()))}
     del s, b, c, ct

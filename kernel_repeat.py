@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the gather (B2), the scatter's ``add`` (B3), the DMA copy (B4) and
-the cache probe (B5) at the main paths' shapes, as ``chip_smoke.py`` times
-them, for one version of the port, so that two versions can be compared on
-one card.
+"""Time the gather (B2), the scatter's ``add`` (B3), the DMA copy (B4), the
+cache probe (B5) and the set-parallel cache engine's calls at the main
+paths' shapes, as ``chip_smoke.py`` times them, for one version of the
+port, so that two versions can be compared on one card.
 
     python3 kernel_repeat.py [--src DIR]
 
@@ -10,11 +10,14 @@ one card.
 default this checkout's; another checkout's, e.g. an unpacked parent
 commit, to compare). The timings are ``chip_smoke.py``'s own
 (``timings_gather``, ``timings_scatter``, ``timings_bulk``,
-``timings_cache``), run on that package: the wrapper's CUDA-event median,
-the device time and launches per call from ``torch.profiler`` and the
-kernel's own device time in that trace, the library call's, the plain
-version's, the bound. B3 and B5 are timed through their wrappers only
-(``full=False``), since their raw launches differ between versions.
+``timings_cache``, ``timings_engine``), run on that package: the
+wrapper's CUDA-event median, the device time and launches per call from
+``torch.profiler`` and the kernel's own device time in that trace, the
+library call's, the plain version's, the bound. B3 and B5 are timed
+through their wrappers only (``full=False``), since their raw launches
+differ between versions; the engine through its entry points (the read
+trace, then the read/write trace under each write policy: device and host
+time, launches, host syncs, the kernels' own device time, the bound).
 One process times one version: run it once per version, alternating
 versions (A, B, B, A) on one machine. Needs one CUDA device;
 builds that version's kernels first.
@@ -41,7 +44,12 @@ def main() -> int:
     import numpy as np
     import torch
     import repro_torch
-    from repro_torch.core import init_cache
+    from repro_torch.core import init_cache, simulate_trace
+    from repro_torch.kernels.cache_lookup import kernel as cl
+    # chip_smoke.py names every kernel library when it is imported; a
+    # version before the row resolve has no library of that name.
+    if not hasattr(cl, "RESOLVE_LIB"):
+        cl.RESOLVE_LIB = None
     # Imported after the package, so that its timing functions run on the
     # version loaded from --src.
     import chip_smoke as cs
@@ -79,7 +87,11 @@ def main() -> int:
                          device=dev),
         max_beats_per_set=int(np.bincount(
             lines.cpu().numpy() % cs.CACHE_CFG.num_sets).max())), full=False)
-    del table
+    ct = cs.cache_trace_inputs(dev, table)
+    ct["warm"] = simulate_trace(ct["state0"], ct["ids"], ct["lines_tab"],
+                                engine="parallel")[0]
+    rows["cache_trace_engine"] = cs.timings_engine(ct, reps=10)
+    del table, ct
     w = torch.randn(cs.FFN_SHAPE, generator=gen, device=dev,
                     dtype=torch.bfloat16)
     kv = torch.randn(cs.KV_SHAPE, generator=gen, device=dev,

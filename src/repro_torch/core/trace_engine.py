@@ -37,20 +37,22 @@ Two passes, both on the state's device:
    sets gives the same bits, so the port has none of them.
 
 2. **Data reconstruction**: served lines, the final Data RAM and the final
-   backing table are recovered from the tag-pipeline outputs with
-   O(N log N) torch passes instead of being threaded through the walk.
-   The key invariant is *clean-line coherence*: a valid clean way's data
-   always equals the backing-table row it caches, so the value any read
-   observes is the **last write to its line** before it — a real trace
-   write, the pre-trace content of an initially dirty way ("virtual
-   write"), or, failing those, the original table row. Victim flushes and
-   write-through stores are then per-line "latest event wins" scatters
-   onto the table. These are pure copies, bit-exact. A write with
-   duplicate targets goes through ``controller.scatter_set_last`` (max of
-   int32 arrival stamps): torch's ``index_put_`` leaves the winner of a
-   duplicate undefined on CUDA, where numpy's fancy assignment is
-   last-wins (ROADMAP C15). No float atomics run, so a call gives the same
-   bits every time.
+   backing table are recovered from the tag-pipeline outputs instead of
+   being threaded through the walk. The key invariant is *clean-line
+   coherence*: a valid clean way's data always equals the backing-table
+   row it caches, so the value any read observes is the **last write to
+   its line** before it — a real trace write, the pre-trace content of an
+   initially dirty way ("virtual write"), or, failing those, the original
+   table row. Victim flushes and write-through stores are then per-line
+   "latest event wins" writes onto the table. The read/write walk names
+   each value's source as it goes (``cache_probe_rw`` with ``rows=``: per
+   beat, per victim, per way and per table row), and ``row_resolve`` then
+   writes the winner rows only — the served lines, the final Data RAM and
+   the new table in one pass over its rows. These are pure copies,
+   bit-exact, with no duplicate-target write and no float atomic, so a
+   call gives the same bits every time (ROADMAP C15). On a CPU state the
+   plain versions resolve the same sources with a per-line forward fill
+   (a stable sort by line and a ``cummax``).
 
 **The numpy fast paths**, copied expression for expression: the chunked
 out-of-order command scheduler (:func:`simulate_dram_sched_fast`), the
@@ -109,16 +111,20 @@ def tag_pipeline(state, lids: torch.Tensor, rw: torch.Tensor | None, *,
     ``lids`` is a 1-D int64 tensor on the state's device, every id in
     ``[0, limit)``, ``limit <= 2^31`` (the kernels raise ``ValueError``
     otherwise — C3's rule for negative ids; the reference's floor ``%``
-    takes them). ``rw`` marks the writes. Returns the
+    takes them). ``rw`` marks the writes; on the read/write path
+    ``limit`` is the table's row count. Returns the
     final control state ``(tags, valid, age, dirty)``, then the
     arrival-order outcome vectors ``hit`` (bool), ``way``, ``evict`` (a
     dirty victim is written back at this beat) and ``vic_tag`` (the tag of
-    the way replaced at this beat), then ``set_idx``.
+    the way replaced at this beat), then ``set_idx``, then the walk's
+    value sources ``(src, flush_src, last, row_src)`` (see
+    ``cache_probe_rw``).
 
     ``rw is None`` is the read path, B5's probe: it reports no evictions
-    (``evict`` and ``vic_tag`` are None — the read path's contract is a
-    dirty-free state), and a dirty way stays dirty only while every beat
-    that touches it hits, as ``_tag_round`` keeps it.
+    and no sources (``evict``, ``vic_tag`` and the sources are None — the
+    read path's contract is a dirty-free state), and a dirty way stays
+    dirty only while every beat that touches it hits, as ``_tag_round``
+    keeps it.
     """
     from repro_torch.kernels.cache_lookup import kernel as cl
 
@@ -134,50 +140,19 @@ def tag_pipeline(state, lids: torch.Tensor, rw: torch.Tensor | None, *,
                              device=lids.device).scatter_reduce_(
             0, slot, (~hit).to(torch.int32), "amax")
         dirty = state.dirty & (missed.view(num_sets, ways) == 0)
-        return (tags, valid != 0, age, dirty), hit, way, None, None, set_idx
-    hit, way, evict, vic_tag, tags, valid, age, dirty, _ = cl.cache_probe_rw(
-        lids, rw, state.tags, valid, state.age,
-        state.dirty.to(torch.int32), state.clock, write_back=write_back,
-        limit=limit)
+        return ((tags, valid != 0, age, dirty), hit, way, None, None,
+                set_idx, None)
+    hit, way, evict, vic_tag, tags, valid, age, dirty, _, *sources = \
+        cl.cache_probe_rw(lids, rw, state.tags, valid, state.age,
+                          state.dirty.to(torch.int32), state.clock,
+                          write_back=write_back, rows=limit)
     return ((tags, valid != 0, age, dirty != 0), hit != 0, way, evict != 0,
-            vic_tag, set_idx)
+            vic_tag, set_idx, tuple(sources))
 
 
 # ---------------------------------------------------------------------------
 # Pass 2 — value reconstruction
 # ---------------------------------------------------------------------------
-
-def _resolve_last_writes(line_arr: torch.Tensor,
-                         val_arr: torch.Tensor) -> torch.Tensor:
-    """Per-line forward fill over *position-ordered* entries.
-
-    ``line_arr[k]`` is entry k's line; ``val_arr[k]`` is its value when it
-    is a write record and -1 when it is a query. Entries must already be
-    in position order (the callers build them in arrival order, virtual
-    writes first). Returns, per entry, the value of the latest record on
-    the same line at or before it (-1 if none).
-
-    A stable sort on the line key alone groups lines while preserving
-    position order; the per-line fill is then one global running max
-    (``cummax``) of record row-indices after lifting each line's rows by a
-    disjoint offset.
-    """
-    m = line_arr.shape[0]
-    if m == 0:
-        return line_arr.new_empty(0)
-    order = torch.sort(line_arr, stable=True).indices
-    line_o, val_o = line_arr[order], val_arr[order]
-    gid = torch.zeros(m, dtype=torch.int64, device=line_arr.device)
-    gid[1:] = (line_o[1:] != line_o[:-1]).long().cumsum(0)
-    ridx = torch.where(val_o >= 0, torch.arange(m, device=line_arr.device),
-                       -1)
-    lift = gid * (m + 1)
-    ffill = torch.cummax(ridx + lift, 0).values - lift
-    res = torch.where(ffill >= 0, val_o[ffill.clamp(min=0)], -1)
-    out = torch.empty_like(res)
-    out[order] = res
-    return out
-
 
 def _virtual_writes(state, num_sets: int, dirty_only: bool):
     """Pre-trace line values resident in the cache, as (line, flat-way)
@@ -205,7 +180,7 @@ def simulate_trace_parallel(state, line_ids, table: torch.Tensor):
     reference's clip does. The state, ids and table lie on one device.
     """
     from repro_torch.core.cache_engine import CacheState
-    from repro_torch.core.controller import scatter_set_last
+    from repro_torch.kernels.cache_lookup import kernel as cl
 
     lids = _ids(line_ids, state.tags.device)
     n = lids.shape[0]
@@ -215,15 +190,20 @@ def simulate_trace_parallel(state, line_ids, table: torch.Tensor):
                 state.data.new_zeros((0, elems)))
     num_sets, ways = state.tags.shape
 
-    (tags, valid, age, dirty), hit, way, _, _, set_idx = tag_pipeline(
+    (tags, valid, age, dirty), hit, way, _, _, set_idx, _ = tag_pipeline(
         state, lids, None, write_back=False)
 
     # Clean coherent state ⇒ every hit serves exactly the table row, and
     # every miss fills from it: lines == table[lids] wholesale.
     lines = table.index_select(
         0, lids.clamp(0, table.shape[0] - 1)).to(state.data.dtype)
-    data = scatter_set_last(state.data.reshape(num_sets * ways, elems),
-                            set_idx * ways + way, lines)
+    # Final Data RAM: each way holds the line of the last beat that
+    # touched it (a max of beat positions per way), else its old content.
+    data0 = state.data.reshape(num_sets * ways, elems)
+    last = torch.full((num_sets * ways,), -1, dtype=torch.int64,
+                      device=lids.device).scatter_reduce_(
+        0, set_idx * ways + way, torch.arange(n, device=lids.device), "amax")
+    data = cl.row_resolve(last, lines, data0[:0], data0)
     final = CacheState(tags=tags, valid=valid, age=age,
                        data=data.reshape(state.data.shape),
                        clock=state.clock + n, dirty=dirty)
@@ -234,20 +214,21 @@ def simulate_trace_rw_parallel(state, line_ids, rw, write_lines, table, *,
                                write_back: bool):
     """Set-parallel equivalent of ``cache_engine.simulate_trace_rw_seq``.
 
-    Pass 1 resolves hits/ways/evictions; pass 2 reconstructs values: the
-    line a read observes is the latest same-line write before it (trace
-    write, or the pre-trace content of an initially dirty way, else the
-    original table row — clean ways mirror the table by the coherence
-    invariant), victim flushes carry the same resolved value, and the
-    final table applies flush/write-through events latest-wins per line.
+    Pass 1, the tag walk, resolves hits, ways and evictions and names
+    every value's source: the line a read observes is the latest
+    same-line write before it (trace write, or the pre-trace content of
+    an initially dirty way, else the original table row — clean ways
+    mirror the table by the coherence invariant), victim flushes carry
+    the same resolved value, and each table row takes its latest flush
+    or write-through event. Pass 2 copies those rows only.
 
-    Requires every id in ``[0, table_rows)`` (any other raises
-    ``ValueError``) and matching table/data/payload dtypes, all on one
-    device — the auto dispatcher in ``cache_engine`` checks all of this
-    and falls back.
+    Requires a table of fewer than 2^31 rows, every id in
+    ``[0, table_rows)`` (any other raises ``ValueError``) and matching
+    table/data/payload dtypes, all on one device — the auto dispatcher in
+    ``cache_engine`` checks the ids, dtypes and coherence and falls back.
     """
     from repro_torch.core.cache_engine import CacheState
-    from repro_torch.core.controller import scatter_set_last
+    from repro_torch.kernels.cache_lookup import kernel as cl
 
     dev = state.tags.device
     lids = _ids(line_ids, dev)
@@ -260,81 +241,26 @@ def simulate_trace_rw_parallel(state, line_ids, rw, write_lines, table, *,
     rows = table.shape[0]
     is_w = torch.as_tensor(rw).to(dev).reshape(-1) != 0
 
-    # Pass 1, with the ids held to the table.
-    (tags, valid, age, dirty), hit, way, evict, vic_tag, set_idx = \
-        tag_pipeline(state, lids, is_w, write_back=write_back,
-                     limit=min(rows, 1 << 31))
+    # Pass 1, with the ids held to the table; the walk names every
+    # value's source.
+    (tags, valid, age, dirty), hit, _, _, _, _, sources = tag_pipeline(
+        state, lids, is_w, write_back=write_back, limit=rows)
+    src, _, last, row_src = sources
 
-    # --- value resolution (pure copies, bit-exact) ------------------------
-    # Value space: trace write payloads [0, n) ++ pre-trace way contents
-    # [n, n + sets*ways).
+    # Pass 2: winner rows only, pure copies (bit-exact). Values carry the
+    # payload's dtype, as the reference resolves them, and each output
+    # takes its own; every conversion is a no-op where the dtypes agree.
     wl = write_lines.reshape(n, elems)
     data0 = state.data.reshape(num_sets * ways, elems)
-    virt_lines, virt_flat = _virtual_writes(state, num_sets,
-                                            dirty_only=True)
-    e_pos = torch.nonzero(evict).squeeze(1)
-    vic_line = vic_tag.index_select(0, e_pos).long() * num_sets \
-        + set_idx.index_select(0, e_pos)
-
-    # Build the entry list already in position order: virtual writes
-    # first (pre-trace), then one entry per beat — a write is a record
-    # (its own payload index), a read is a query — with each dirty
-    # eviction's flush query slotted right beside its beat. Same-position
-    # entries are always on different lines, so their relative order is
-    # immaterial. Every index below is distinct.
-    nv = virt_lines.shape[0]
-    pos = torch.arange(n, device=dev)
-    slot = pos + nv
-    slot[1:] += evict[:-1].long().cumsum(0)
-    ev_slot = slot.index_select(0, e_pos) + 1
-    m = nv + n + e_pos.shape[0]
-    line_arr = torch.empty(m, dtype=torch.int64, device=dev)
-    val_arr = torch.full((m,), -1, dtype=torch.int64, device=dev)
-    line_arr[:nv] = virt_lines
-    val_arr[:nv] = n + virt_flat
-    line_arr[slot] = lids
-    val_arr[slot] = torch.where(is_w, pos, -1)
-    line_arr[ev_slot] = vic_line
-    lw_all = _resolve_last_writes(line_arr, val_arr)
-
-    def resolve(lw_idx):
-        """Gather values for resolved last-write indices (≥ 0)."""
-        real = lw_idx < n
-        from_trace = wl.index_select(0, lw_idx.clamp(max=n - 1))
-        from_ways = data0.index_select(0, (lw_idx - n).clamp(min=0))
-        return torch.where(real[:, None], from_trace,
-                           from_ways.to(wl.dtype))
-
-    # A beat's line: its latest same-line write (a write's own payload),
-    # else the original table row.
-    lw_beat = lw_all.index_select(0, slot)
-    lines = torch.where((lw_beat >= 0)[:, None],
-                        resolve(lw_beat.clamp(min=0)),
-                        table.index_select(0, lids).to(wl.dtype))
-
-    # Final Data RAM: the last beat to touch each way leaves its line.
-    data = scatter_set_last(data0, set_idx * ways + way, lines)
-
-    # Final table: victim flushes (a dirty way was written — lw exists)
-    # plus, under write-through, every trace write; latest event per line
-    # wins. The events go in position order (evictions come in it), so
-    # ``scatter_set_last``'s latest-in-array-order is the latest position.
-    flush_vals = resolve(lw_all.index_select(0, ev_slot).clamp(min=0))
-    if write_back:
-        ev_line, ev_vals = vic_line, flush_vals
-    else:
-        w_pos = torch.nonzero(is_w).squeeze(1)
-        order = torch.sort(torch.cat([e_pos, w_pos]), stable=True).indices
-        ev_line = torch.cat([vic_line, lids.index_select(0, w_pos)])[order]
-        ev_vals = torch.cat([flush_vals, wl.index_select(0, w_pos)])[order]
-    new_table = table
-    if ev_line.numel():
-        # Clip like access_rw does. Trace-installed victims are in-bounds
-        # by the id check; this only fires on forced-parallel calls with
-        # out-of-range resident dirty lines (where auto would have fallen
-        # back to the sequential path).
-        new_table = scatter_set_last(table, ev_line.clamp(0, rows - 1),
-                                     ev_vals)
+    ways_v = data0.to(wl.dtype)
+    # A beat's line: its latest same-line write, else the table's row.
+    lines = cl.row_resolve(src, wl, ways_v, table.to(wl.dtype), lids)
+    # Final Data RAM: the line of the last beat to touch each way.
+    data = cl.row_resolve(last, lines.to(data0.dtype), data0[:0], data0)
+    # Final table: each row's latest flush or write-through store, else
+    # the row as it was — one pass over the table.
+    new_table = cl.row_resolve(row_src, wl.to(table.dtype),
+                               ways_v.to(table.dtype), table)
 
     final = CacheState(tags=tags, valid=valid, age=age,
                        data=data.reshape(state.data.shape),

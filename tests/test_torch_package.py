@@ -27,7 +27,7 @@ from repro_torch.kernels.sorted_gather import kernel as sg_kernel
 from repro_torch.kernels.sorted_scatter import kernel as ss_kernel
 
 LIBS = (bs_kernel.LIB, sg_kernel.LIB, ss_kernel.LIB, dc_kernel.LIB,
-        cl_kernel.LIB, fa_kernel.LIB, cl_kernel.RW_LIB)
+        cl_kernel.LIB, fa_kernel.LIB, cl_kernel.RW_LIB, cl_kernel.RESOLVE_LIB)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -184,8 +184,8 @@ def test_controller_runs_on_the_gpu_unless_asked():
 
 @pytest.mark.parametrize("call", ["sort", "gather", "scatter_set",
                                   "scatter_add", "dma_copy", "cache_probe",
-                                  "cache_probe_rw", "cache_service",
-                                  "flash_attention"])
+                                  "cache_probe_rw", "row_resolve",
+                                  "cache_service", "flash_attention"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
     """For a tensor on another device than the CPU the wrappers launch the
     kernel or raise; on the ``meta`` device (no data, no kernel) they raise
@@ -203,6 +203,8 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
         elif call == "flash_attention":
             q = torch.zeros((1, 8, 4, 16), device=dev)
             fa_kernel.flash_attention_fwd(q, q[:, :, :2], q[:, :, :2])
+        elif call == "row_resolve":
+            cl_kernel.row_resolve(sidx.long(), vals, vals, vals)
         elif call == "dma_copy":
             dc_kernel.staged_copy(table.reshape(-1), vals.new_zeros(32),
                                   chunk_elems=128, channels=4)
@@ -214,7 +216,7 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
             elif call == "cache_probe_rw":
                 cl_kernel.cache_probe_rw(sidx, sidx, state.tags, state.age,
                                          state.age, state.age, state.clock,
-                                         write_back=True)
+                                         write_back=True, rows=8)
             else:
                 cl_ops.cache_service(table, sidx, state)
         else:

@@ -383,7 +383,8 @@ def test_probe_rw_plain_is_the_tag_round_step(write_back, start):
     got = cl.cache_probe_rw(
         torch.from_numpy(ids), torch.from_numpy(writes),
         *map(torch.from_numpy, state),
-        torch.tensor([clock], dtype=torch.int32), write_back=write_back)
+        torch.tensor([clock], dtype=torch.int32), write_back=write_back,
+        rows=40 * sets)
     names = ("hits", "ways", "evict", "vic_tag", "tags", "valid", "age",
              "dirty", "clock")
     for name, g, w in zip(names, got, want):
@@ -399,7 +400,7 @@ def test_probe_rw_rejects_what_the_kernel_does_not_take(case):
     ids = torch.tensor([1, 2, 3], dtype=torch.int32)
     writes = torch.tensor([0, 1, 0], dtype=torch.int32)
     dirty = st.dirty.to(torch.int32)
-    limit = 1 << 31
+    rows = 1 << 10
     if case == "negative id":
         ids = torch.tensor([1, -2, 3], dtype=torch.int32)
     elif case == "write flags shape":
@@ -407,11 +408,11 @@ def test_probe_rw_rejects_what_the_kernel_does_not_take(case):
     elif case == "dirty dtype":
         dirty = st.dirty
     else:
-        limit = 3
+        rows = 3
     with pytest.raises(ValueError):
         cl.cache_probe_rw(ids, writes, st.tags, st.valid.to(torch.int32),
                           st.age, dirty, st.clock, write_back=True,
-                          limit=limit)
+                          rows=rows)
 
 
 def test_parallel_engine_repeats_its_bits(rng):
@@ -431,3 +432,204 @@ def test_parallel_engine_repeats_its_bits(rng):
     _same(first, tce.simulate_trace_rw(st, lids, rw, wl, table, config=cfg,
                                        engine="parallel"), "second call")
     _same((st, table), before, "inputs")
+
+
+def _tag_round_values(ids, writes, tags, valid, age, dirty, clock,
+                      write_back, rows):
+    """``_tag_round``'s step beat by beat, tracking where each value comes
+    from as the sequential engine moves it: each way's data and each table
+    row carry a source (a beat's payload ``b``, the pre-trace content of
+    way ``flat`` as ``n + flat``, the original row as -1). A victim flush
+    writes its way's source to its (clipped) row, then a write-through
+    write its own; a hit serves the way's source, a miss the row's. The
+    oracle of ``cache_probe_rw_plain``'s value sources, from states a
+    trace can reach (one way for a line)."""
+    sets, ways = tags.shape
+    n = ids.size
+    tags, valid, age, dirty = (a.copy() for a in (tags, valid, age, dirty))
+    way_src = np.where((valid != 0) & (dirty != 0),
+                       n + np.arange(sets * ways).reshape(sets, ways), -1)
+    row_src = np.full(rows, -1, np.int64)
+    src, flush_src = np.full(n, -1, np.int64), np.full(n, -1, np.int64)
+    last = np.full(sets * ways, -1, np.int64)
+    for b, (lid, w) in enumerate(zip(ids.tolist(), writes.tolist())):
+        s, t = lid % sets, lid // sets
+        match = (valid[s] != 0) & (tags[s] == t)
+        hit = bool(match.any())
+        way = int(np.argmax(match)) if hit else int(np.argmin(age[s]))
+        way_dirty = bool(valid[s, way]) and bool(dirty[s, way])
+        if not hit and way_dirty:
+            flush_src[b] = way_src[s, way]
+            row_src[min(max(int(tags[s, way]) * sets + s, 0), rows - 1)] = \
+                flush_src[b]
+        src[b] = b if w else way_src[s, way] if hit else row_src[lid]
+        way_src[s, way] = src[b]
+        if w and not write_back:
+            row_src[lid] = b
+        keep = hit and way_dirty and not w
+        tags[s, way], valid[s, way] = t, 1
+        age[s, way] = np.int32(clock + b + 1)
+        dirty[s, way] = (bool(w) and write_back) or keep
+        last[s * ways + way] = b
+    return src, flush_src, last, row_src
+
+
+def _value_trace(kind, rng, sets):
+    """Read/write traces that stress the value sources: ``hot line`` (one
+    line written, evicted by four others of its set and read back, over
+    and over), ``single set`` (every beat in set 3) and ``dirty write
+    miss`` (writes fill a set, then a write misses and evicts a dirty way
+    at its own beat), each mixed with random beats."""
+    if kind == "hot line":
+        rounds = [[5, 5 + sets, 5 + 2 * sets, 5 + 3 * sets, 5 + 4 * sets, 5]
+                  for _ in range(30)]
+        ids = np.asarray(rounds).reshape(-1)
+        rw = np.tile([1, 0, 1, 0, 0, 0], 30)
+    elif kind == "single set":
+        ids = 3 + sets * rng.integers(0, 12, 300)
+        rw = rng.integers(0, 2, 300)
+    else:
+        rounds = [[k * sets + 2 * j for k in range(5)] for j in range(4)]
+        ids = np.asarray(rounds * 8).reshape(-1)
+        rw = np.ones(ids.size, np.int64)
+        rw[::7] = 0
+    noise = rng.integers(0, 40 * sets, ids.size // 2)
+    at = np.sort(rng.choice(ids.size + noise.size, noise.size,
+                            replace=False))
+    mixed = np.empty(ids.size + noise.size, np.int64)
+    flags = np.empty_like(mixed)
+    keep = np.ones(mixed.size, bool)
+    keep[at] = False
+    mixed[keep], flags[keep] = ids, rw
+    mixed[at], flags[at] = noise, rng.integers(0, 2, noise.size)
+    return mixed.astype(np.int32), flags.astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["hot line", "single set",
+                                  "dirty write miss"])
+@pytest.mark.parametrize("start", ["empty", "warm dirty"])
+@pytest.mark.parametrize("write_back", [True, False])
+def test_probe_rw_plain_value_sources_follow_the_values(kind, start,
+                                                        write_back):
+    """``cache_probe_rw_plain``'s value sources (``src``, ``flush_src``,
+    ``last``, ``row_src``) against a per-beat loop of ``_tag_round``'s
+    step that tracks values, from an empty state and from the dirty state
+    a write-back trace leaves; its other nine outputs against
+    ``_tag_round_walk``."""
+    rng = np.random.default_rng(["hot line", "single set"].count(kind)
+                                + 3 * write_back)
+    sets, ways, rows = 8, 4, 8 * 40
+    shape = (sets, ways)
+    state = [np.zeros(shape, np.int32), np.zeros(shape, np.int32),
+             np.full(shape, -1, np.int32), np.zeros(shape, np.int32)]
+    clock = 0
+    if start == "warm dirty":
+        warm_ids = rng.integers(0, rows, 200).astype(np.int32)
+        walk = _tag_round_walk(warm_ids, rng.integers(0, 2, 200), *state,
+                               clock, True)
+        state, clock = list(walk[4:8]), int(walk[8][0])
+        assert (state[3] != 0).any()
+    ids, writes = _value_trace(kind, rng, sets)
+    got = cl.cache_probe_rw(
+        torch.from_numpy(ids), torch.from_numpy(writes),
+        *map(torch.from_numpy, state),
+        torch.tensor([clock], dtype=torch.int32), write_back=write_back,
+        rows=rows)
+    assert len(got) == 13
+    walk = _tag_round_walk(ids, writes, *state, clock, write_back)
+    for g, w in zip(got[:9], walk):
+        np.testing.assert_array_equal(g.numpy(), w)
+    want = _tag_round_values(ids, writes, *state, clock, write_back, rows)
+    for name, g, w in zip(("src", "flush_src", "last", "row_src"), got[9:],
+                          want):
+        assert g.dtype == torch.int64, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    if kind == "dirty write miss" and (write_back or start != "empty"):
+        assert (got[2].numpy() & writes).any(), "no write evicted a dirty way"
+
+
+@pytest.mark.parametrize("kind", ["hot line", "single set",
+                                  "dirty write miss"])
+@pytest.mark.parametrize("policy", ["write_back", "write_through"])
+@pytest.mark.parametrize("warm", [False, True])
+def test_rw_engine_on_value_traces_matches_reference_parallel(kind, policy,
+                                                              warm):
+    """The engine on the value-source traces against the reference's
+    set-parallel engine and the port's sequential walk."""
+    rng = np.random.default_rng(len(kind) + warm)
+    ids, rw = _value_trace(kind, rng, 64)
+    _rw_case(dict(num_lines=256, associativity=4, write_policy=policy),
+             ids, rw, 64 * 40, warm, rng)
+
+
+@pytest.mark.parametrize("policy", ["write_back", "write_through"])
+def test_forced_parallel_clips_an_out_of_table_dirty_line(policy, rng):
+    """A forced ``engine="parallel"`` from resident dirty ways whose lines
+    lie past the (smaller) passed table: both engines clip their flushes
+    to the last row, where they compete in arrival order with the row's
+    own events, a write-through write to it at the flush's own beat
+    included (the write lands last)."""
+    cfg = dict(num_lines=256, associativity=1, write_policy="write_back")
+    jcfg = JCacheConfig(**cfg)
+    big = jnp.asarray(rng.standard_normal((2048, 2)), jnp.float32)
+    warm_ids = np.concatenate([rng.integers(1500, 2048, 63), [1663]])
+    jst, big, _, _ = jce.simulate_trace_rw_seq(
+        jce.init_cache(jcfg, 2), jnp.asarray(warm_ids, jnp.int32),
+        jnp.ones(64, jnp.int32),
+        jnp.asarray(rng.standard_normal((64, 2)), jnp.float32), big,
+        config=jcfg)
+    small = rng.standard_normal((640, 2)).astype(np.float32)
+    n = 400
+    lids = rng.integers(0, 640, n).astype(np.int32)
+    lids[[7, 50, 51, 300]] = [639, 127, 639, 383]   # set 127, row 639
+    rw = rng.integers(0, 2, n).astype(np.int32)
+    rw[[7, 51]] = 1
+    wl = rng.standard_normal((n, 2)).astype(np.float32)
+    pcfg = dict(cfg, write_policy=policy)
+    jargs = (*map(jnp.asarray, (lids, rw, wl, small)),)
+    want = jce.simulate_trace_rw(jst, *jargs, config=JCacheConfig(**pcfg),
+                                 engine="parallel")
+    got = tce.simulate_trace_rw(_port_state(jst),
+                                *map(torch.from_numpy, (lids, rw, wl, small)),
+                                config=CacheConfig(**pcfg), engine="parallel")
+    for name, g, w in zip(("state", "table", "hits", "lines"), got, want):
+        _assert_equal(g, w, name)
+    assert not np.array_equal(got[1].numpy()[639], small[639])
+
+
+@pytest.mark.parametrize("case", ["src dtype", "widths", "dtypes",
+                                  "fallback rows", "devices"])
+def test_row_resolve_rejects_what_the_kernel_does_not_take(case):
+    src = torch.tensor([0, -1, 3])
+    payload, extra = torch.zeros((2, 4)), torch.zeros((2, 4))
+    fallback, fb_rows = torch.zeros((3, 4)), None
+    if case == "src dtype":
+        src = src.int()
+    elif case == "widths":
+        extra = torch.zeros((2, 5))
+    elif case == "dtypes":
+        fallback = fallback.double()
+    elif case == "fallback rows":
+        fallback = torch.zeros((5, 4))
+    else:
+        fb_rows = torch.zeros(3, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        cl.row_resolve(src, payload, extra, fallback, fb_rows)
+
+
+def test_row_resolve_copies_the_rows_its_sources_name(rng):
+    """Each kind of source, with and without ``fallback_rows``, against
+    numpy row picks; the bits are the sources'."""
+    payload = rng.standard_normal((5, 3)).astype(np.float32)
+    extra = rng.standard_normal((4, 3)).astype(np.float32)
+    fallback = rng.standard_normal((7, 3)).astype(np.float32)
+    src = rng.integers(-1, 9, 7)
+    rows = rng.integers(0, 7, 7)
+    pool = np.concatenate([payload, extra])
+    for fb in (None, rows):
+        want = np.where((src >= 0)[:, None], pool[np.maximum(src, 0)],
+                        fallback[np.arange(7) if fb is None else fb])
+        got = cl.row_resolve(*map(torch.from_numpy, (src, payload, extra,
+                                                     fallback)),
+                             None if fb is None else torch.from_numpy(fb))
+        np.testing.assert_array_equal(got.numpy(), want)
