@@ -136,8 +136,41 @@ Phases (a failing phase raises and the script exits non-zero):
    device time with its kernels' own in it beside the call's byte bound,
    and the row resolve at the engine's three calls.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+6. after the serve path, its 68.78 GB freed:
+   - autotune (host only; no kernel may launch): ``tune(engine=
+     "batched")`` over ``FULL_GRID`` (benchmarks/perf_model_traces.py's)
+     on each of the six pinned family traces (8 ports, 4096-byte rows)
+     must give ``BENCH_model_traces.json``'s ``families`` entry, read from
+     disk: the geometry, and ``tuned_cycles`` to 0.1; over ``SMALL_GRID``
+     the batched engine and the oracle the same argmin and table, scores
+     within C6_ULPS (ROADMAP C6). Host seconds of each call per trace.
+   - serve_moe and serve_ssm: ``Server("qwen2-moe-a2.7b")`` (24 layers,
+     60 routed experts top-4 and 4 shared, 28.63 GB bf16) and
+     ``Server("mamba2-2.7b")`` (64 layers, 80 SSD heads, 5.66 GB), neither
+     cut, random from seed 0, serving the yi-34b serve's mix with counters
+     zeroed just before ``serve``: flash attention once per attention
+     layer per batch on its tensor-core route (none for Mamba), the
+     scheduler's sort and gather in every embedding lookup, no other
+     kernel; the modeled replay equal to ``SERVE_MODELED``. MoE, on the
+     served bf16 weights: B6's block within SERVE_ATTN_ULPS at each of
+     the 24 layers (a walk of the layers through ``LM._run_block`` that
+     must give the prefill's logits bit for bit), the prefill's dropped
+     assignments and route flips, and the logit comparisons printed;
+     then on a float32 copy (``check_moe_serve`` says why), through
+     ``prefill``, ``decode_step`` and ``forward``: last-token prefill
+     logits kernels on against off, with greedy tokens, and a decode step
+     against the cache-free forward on a copy whose capacity factor makes
+     capacity equal the tokens, each within SERVE_F32_REL_BOUND. SSM:
+     kernels on against off and greedy tokens on the served weights,
+     within SERVE_REL_BOUND; on a float32 copy a decode step against the
+     cache-free forward and the chunked forward against a stepwise decode
+     over 300 tokens (a chunk boundary and a ragged tail), each within
+     SERVE_F32_REL_BOUND, the bf16 readings printed. Each prints parameter
+     bytes, prefill seconds, decode seconds a step and tokens a second.
+
+The line before the last is ``{"kernels": [...]}`` (each kernel's
+launches on its own path, and ``launches_by_path`` on every path); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -167,6 +200,7 @@ from repro_torch.core import (CacheConfig, CacheState, DMAConfig,  # noqa: E402
                               PAPER_EVAL_CONFIG, dma_engine,
                               filter_trace_rw, flush, hit_rate_oracle,
                               init_cache, simulate_trace, simulate_trace_rw)
+from repro_torch.core import autotune  # noqa: E402
 from repro_torch.core.config import (DRAMSchedConfig,  # noqa: E402
                                      SchedulerConfig)
 from repro_torch.core.controller import scatter_set_last  # noqa: E402
@@ -179,6 +213,7 @@ from repro_torch.core.timing import (DDR4_2400, simulate_dram_access,  # noqa: E
                                      simulate_dram_access_windowed_seq,
                                      simulate_dram_sched,
                                      simulate_dram_sched_seq)
+from repro_torch.data import model_traces  # noqa: E402
 from repro_torch.data.synthetic import hog_victim_workload  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import tracing  # noqa: E402
@@ -267,6 +302,10 @@ ATTN_CASES = [
 # Relative bound of the serve path's self-consistency (max |diff| over the
 # largest reference logit magnitude).
 SERVE_REL_BOUND = 2e-2
+# The same on a float32 copy of the served weights (the MoE and SSM serves'
+# gates: ``check_moe_serve``, ``check_ssm_serve``), as the CPU parity tests
+# hold float32 logits.
+SERVE_F32_REL_BOUND = 1e-4
 # B6's own error in the serve model: at every layer its attention block
 # within this many bf16 ulps of the plain block's largest magnitude, on the
 # same input.
@@ -287,6 +326,43 @@ SERVE_MODELED = dict(
         "mean_sojourn": 35507.548829229934,
         "worst_sojourn": 73432.15451545155}},
     modeled_slo_attainment={})
+# The two serves after yi-34b's (same mix): the MoE family at
+# qwen2-moe-a2.7b's full configuration (24 layers, 60 routed experts top-4
+# and 4 shared, 28.63 GB bf16) and the SSM family at mamba2-2.7b's (64
+# layers, 80 SSD heads of 64, state 128, chunk 256, 5.66 GB); neither cut.
+SERVE_MOE_ARCH, SERVE_SSM_ARCH = "qwen2-moe-a2.7b", "mamba2-2.7b"
+# The SSM serve's stepwise check: a prompt past one 256-token chunk with a
+# ragged tail, for two sequences.
+SSM_STEP_PROMPT, SSM_STEP_BATCH = 300, 2
+# The MoE serve's float32 checks: the first prompts of its first batch.
+MOE_F32_BATCH = 2
+# The autotune phase: benchmarks/perf_model_traces.py's two grids (that
+# module imports the reference package, so they are copied here). The full
+# grid on the six pinned family traces reproduces BENCH_model_traces.json's
+# ``families``; the small one holds the batched engine to the oracle.
+FULL_GRID = dict(
+    batch_sizes=(16, 64, 256),
+    associativities=(1, 4),
+    num_lines=(1024, 4096, 16384),
+    dma_channels=(4,),
+    num_channels=(1, 2, 4),
+    mapping_policies=("row_interleave", "xor"),
+    dram_sched_policies=("fifo", "frfcfs"),
+    reorder_windows=(1, 16, 64),
+)
+SMALL_GRID = dict(
+    batch_sizes=(16, 64),
+    associativities=(1, 4),
+    num_lines=(1024, 4096),
+    dma_channels=(4,),
+    num_channels=(1, 4),
+    mapping_policies=("row_interleave", "xor"),
+    dram_sched_policies=("fifo", "frfcfs"),
+    reorder_windows=(1, 16),
+)
+# The two engines' scores may differ in the last digit (ROADMAP C6): held
+# within this many ulps of the larger.
+C6_ULPS = 4
 # The routes of the kernels that choose one by alignment, by the names of
 # their CUDA kernels in a profiler trace.
 ROUTES = {"sorted_gather": {"gather_rows_tma_kernel": "tma",
@@ -436,7 +512,8 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> float:
 def block_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     """Max |got - want| in ulps (of want's dtype) of want's largest
     magnitude: one number for a whole block."""
-    bits = {torch.bfloat16: 8, torch.float16: 11}[want.dtype]
+    bits = {torch.bfloat16: 8, torch.float16: 11,
+            torch.float32: 24}[want.dtype]
     top = want.float().abs().max()
     _, exp = torch.frexp(top)
     ulp = torch.ldexp(torch.ones_like(top), exp - bits)
@@ -2230,6 +2307,41 @@ def serve_drift(lm, params, prompts, tok, max_len, full, step) -> dict:
         decode_walk_is_decode_step=same_bits(logits["decode"], step))
 
 
+def plain_and_kernels(lm, params, prompts, max_len):
+    """Prefill ``prompts`` and take one decode step, kernels off
+    (``plain``) then on (``kernels``); the step's token is the plain
+    prefill's greedy one. Returns ({name: (prefill logits, step logits)},
+    token)."""
+    plain = dataclasses.replace(lm, cfg=dataclasses.replace(
+        lm.cfg, use_kernels=False))
+    res, tok = {}, None
+    for name, m in (("plain", plain), ("kernels", lm)):
+        logits, cache, cur = m.prefill(params, {"tokens": prompts}, max_len)
+        if tok is None:
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        step, cache = m.decode_step(params, tok, cache, cur)
+        res[name] = (logits, step)
+        del cache
+        torch.cuda.empty_cache()
+    return res, tok
+
+
+def check_greedy(res, out: dict) -> None:
+    """Greedy tokens of the prefill and of the decode step, kernels on
+    against off, equal wherever the plain path's top two logits are
+    further apart than SERVE_REL_BOUND of its largest magnitude."""
+    res = {k: tuple(x.float() for x in r) for k, r in res.items()}
+    for i, what in enumerate(("prefill", "decode")):
+        want, got = res["plain"][i], res["kernels"][i]
+        top2 = torch.topk(want, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > SERVE_REL_BOUND * float(
+            want.abs().max())
+        same = torch.argmax(got, -1) == torch.argmax(want, -1)
+        assert bool(same[sure].all()), f"greedy {what} tokens differ"
+        out[f"{what}_greedy_checked"] = int(sure.sum())
+        out[f"{what}_greedy_equal"] = int(same.sum())
+
+
 def check_serve(server, batch) -> dict:
     """The serve path held to itself: the same params with kernels off
     (last-token prefill logits within SERVE_REL_BOUND, greedy tokens of
@@ -2244,17 +2356,7 @@ def check_serve(server, batch) -> dict:
     prompts = torch.from_numpy(np.stack([r.prompt for r in batch])).to(
         server.device)
     max_len = prompts.shape[1] + SERVE_NEW + 8
-    plain = dataclasses.replace(lm, cfg=dataclasses.replace(
-        lm.cfg, use_kernels=False))
-    res, tok = {}, None
-    for name, m in (("plain", plain), ("kernels", lm)):
-        logits, cache, cur = m.prefill(params, {"tokens": prompts}, max_len)
-        if tok is None:
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        step, cache = m.decode_step(params, tok, cache, cur)
-        res[name] = (logits, step)
-        del cache
-        torch.cuda.empty_cache()
+    res, tok = plain_and_kernels(lm, params, prompts, max_len)
     full = lm.forward(params, {"tokens": torch.cat(
         [prompts, tok[:, None]], dim=1)})[0][:, -1, :lm.cfg.vocab_size]
     out = dict(prefill_rel_err=rel_err(res["kernels"][0], res["plain"][0]),
@@ -2268,20 +2370,354 @@ def check_serve(server, batch) -> dict:
     assert drift["attn_b6_worst_ulps"] <= SERVE_ATTN_ULPS, \
         f"B6's attention block {drift['attn_b6_worst_ulps']} bf16 ulps " \
         f"from the plain one at layer {drift['attn_b6_worst_layer']}"
-    res = {k: tuple(x.float() for x in r) for k, r in res.items()}
     assert out["prefill_rel_err"] <= SERVE_REL_BOUND, out
-    for i, what in enumerate(("prefill", "decode")):
-        want, got = res["plain"][i], res["kernels"][i]
-        top2 = torch.topk(want, 2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > SERVE_REL_BOUND * float(
-            want.abs().max())
-        same = torch.argmax(got, -1) == torch.argmax(want, -1)
-        assert bool(same[sure].all()), f"greedy {what} tokens differ"
-        out[f"{what}_greedy_checked"] = int(sure.sum())
-        out[f"{what}_greedy_equal"] = int(same.sum())
+    check_greedy(res, out)
     assert out["decode_vs_forward_rel_err"] <= SERVE_REL_BOUND, out
     assert bool(torch.isfinite(full).all()), "forward: non-finite logits"
     return out
+
+
+def head_logits(cfg, params, x) -> torch.Tensor:
+    """Final norm and LM head on the last position of x (B, S, D), as
+    ``prefill`` computes them."""
+    return (layers.rms_norm(x[:, -1], params["final_norm"])
+            @ params["lm_head"])[:, :cfg.vocab_size]
+
+
+def same_routes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per token, whether two (T, k) route tables pick the same experts."""
+    return (a.sort(-1).values == b.sort(-1).values).all(-1)
+
+
+def moe_prefill_layers(lm, params, prompts, prefill_logits) -> dict:
+    """The MoE prefill's layers on ``prompts``, each run by ``lm``'s own
+    ``_run_block`` (kernels on). At each layer, on that layer's input:
+    B6's attention block against the plain one (``attn_b6``, max |diff|
+    over max |plain|; ``attn_b6_ulps`` in bf16 ulps of the plain block's
+    largest magnitude), the assignments the layer's routes drop past
+    capacity (``dropped``), and ``route_flips``, the tokens whose router
+    picks other experts when the layer's attention is the plain block. A
+    route is discrete: where two experts' router logits lie closer than
+    the bf16 differences between B6 and the plain attention, the token
+    goes to other experts and its output moves by tens of percent. The
+    walk must give the prefill's logits bit for bit."""
+    cfg = lm.cfg
+    m = cfg.moe
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    x, _ = lm._embed_inputs(params, {"tokens": prompts})
+    pos = lm._positions(x)
+    T = x.shape[0] * x.shape[1]
+    capacity = blocks.moe_capacity(cfg, T)
+    out = collections.defaultdict(list)
+    for l in range(cfg.num_layers):
+        bp = map_tree(lambda t: t[l], params["layers"]["pos0"])
+        b6 = blocks.attn_forward(bp["attn"], x, cfg, pos)[0]
+        ref = blocks.attn_forward(bp["attn"], x, plain, pos)[0]
+        out["attn_b6"].append(rel_err(b6, ref))
+        out["attn_b6_ulps"].append(block_ulps(b6, ref))
+        ek = blocks.moe_route(bp["moe"], x + b6, cfg)[4]
+        ep = blocks.moe_route(bp["moe"], x + ref, cfg)[4]
+        out["route_flips"].append(int((~same_routes(ep, ek)).sum()))
+        keep = blocks.moe_slots(ek, 1, m.num_experts, capacity,
+                                cfg.moe_dispatch)[1]
+        out["dropped"].append(int((~keep).sum()))
+        del b6, ref
+        x = lm._run_block(bp, x, pos, "prefill")[0]
+    assert same_bits(head_logits(cfg, params, x), prefill_logits), \
+        "the layer walk does not give the prefill's logits"
+    worst = int(np.argmax(out["attn_b6_ulps"]))
+    return dict(out, capacity=capacity, assignments=T * m.top_k,
+                dropped_share=sum(out["dropped"]) / (
+                    cfg.num_layers * T * m.top_k),
+                attn_b6_worst_layer=worst,
+                attn_b6_worst_ulps=out["attn_b6_ulps"][worst])
+
+
+def float32_in_place(tree) -> None:
+    """Replace each leaf of a parameter tree by its float32 copy, one leaf
+    at a time, so that the two copies never coexist whole (qwen2-moe's
+    float32 copy alone is 57.3 GB)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            float32_in_place(v)
+        else:
+            tree[k] = v.float()
+            del v
+
+
+def float32_copy(lm, params):
+    """``lm`` on float32 parameters; ``params`` become their float32 copy
+    in place."""
+    float32_in_place(params)
+    return dataclasses.replace(lm, cfg=dataclasses.replace(
+        lm.cfg, param_dtype="float32"))
+
+
+def no_drop(lm):
+    """``lm`` with a capacity factor that makes every expert's capacity
+    equal the tokens, so that nothing drops (the reference's consistency
+    tests raise it to 8.0 for the same reason; 60 experts top-4 need
+    15)."""
+    m = lm.cfg.moe
+    return dataclasses.replace(lm, cfg=dataclasses.replace(
+        lm.cfg, moe=dataclasses.replace(
+            m, capacity_factor=float(m.num_experts))))
+
+
+def decode_vs_forward(lm, params, prompts, tok, max_len) -> float:
+    """``lm``'s decode step of ``tok`` after a prefill of ``prompts``
+    against the cache-free forward of both, at the last position."""
+    _, cache, cur = lm.prefill(params, {"tokens": prompts}, max_len)
+    step, cache = lm.decode_step(params, tok, cache, cur)
+    del cache
+    full = lm.forward(params, {"tokens": torch.cat(
+        [prompts, tok[:, None]], dim=1)})[0][:, -1, :lm.cfg.vocab_size]
+    assert bool(torch.isfinite(full).all()), "forward: non-finite logits"
+    return rel_err(step, full)
+
+
+def check_moe_serve(server, batch) -> dict:
+    """The MoE serve, through ``prefill``, ``decode_step`` and ``forward``.
+    On the served bf16 weights: B6's block within SERVE_ATTN_ULPS at each
+    of the 24 layers, the prefill's drops and route flips
+    (``moe_prefill_layers``), and the logit comparisons printed
+    (``*_bf16``): bf16 swaps the routes of hundreds of tokens a layer
+    between two paths, which moves their logits by tens of percent
+    (ROADMAP C18). Gated on a float32 copy of the same weights, for
+    MOE_F32_BATCH prompts, within SERVE_F32_REL_BOUND: last-token prefill
+    logits kernels on against off, with greedy tokens, and a decode step
+    against the cache-free forward on ``no_drop``."""
+    lm, params = server.lm, server.params
+    prompts = torch.from_numpy(np.stack([r.prompt for r in batch])).to(
+        server.device)
+    max_len = prompts.shape[1] + SERVE_NEW + 8
+    res, tok = plain_and_kernels(lm, params, prompts, max_len)
+    walk = moe_prefill_layers(lm, params, prompts, res["kernels"][0])
+    torch.cuda.empty_cache()
+    nd = no_drop(lm)
+    n = prompts.numel() + tok.numel()
+    assert blocks.moe_capacity(nd.cfg, n) == n
+    out = dict(prefill_rel_err_bf16=rel_err(res["kernels"][0],
+                                            res["plain"][0]),
+               decode_vs_forward_rel_err_bf16=decode_vs_forward(
+                   nd, params, prompts, tok, max_len))
+    say(phase="serve_moe_layers", **out, **walk)
+    assert walk["attn_b6_worst_ulps"] <= SERVE_ATTN_ULPS, \
+        f"B6's attention block {walk['attn_b6_worst_ulps']} bf16 ulps " \
+        f"from the plain one at layer {walk['attn_b6_worst_layer']}"
+    out.update({k: walk[k] for k in ("attn_b6_worst_layer",
+                                     "attn_b6_worst_ulps", "dropped_share",
+                                     "capacity")},
+               prefill_route_flips_bf16=sum(walk["route_flips"]))
+    del res
+    torch.cuda.empty_cache()
+
+    lm32 = float32_copy(lm, params)
+    prompts = prompts[:MOE_F32_BATCH]
+    res, tok = plain_and_kernels(lm32, params, prompts, max_len)
+    out["prefill_rel_err"] = rel_err(res["kernels"][0], res["plain"][0])
+    check_greedy(res, out)
+    out["decode_vs_forward_rel_err"] = decode_vs_forward(
+        no_drop(lm32), params, prompts, tok, max_len)
+    say(phase="serve_moe_float32", **out)
+    assert out["prefill_rel_err"] <= SERVE_F32_REL_BOUND, out
+    assert out["decode_vs_forward_rel_err"] <= SERVE_F32_REL_BOUND, out
+    return out
+
+
+def ssm_stepwise(lm, params, tokens) -> dict:
+    """The chunked forward of ``tokens`` against ``decode_step`` from a
+    zero cache, one token at a time (each step ``mamba_decode`` in every
+    layer): per position, max |diff| of the logits over the forward's
+    largest magnitude there."""
+    V = lm.cfg.vocab_size
+    fwd = lm.forward(params, {"tokens": tokens})[0][..., :V]
+    cache = lm.init_cache(tokens.shape[0], tokens.shape[1])
+    errs = []
+    for t in range(tokens.shape[1]):
+        step, cache = lm.decode_step(params, tokens[:, t].contiguous(),
+                                     cache, t)
+        errs.append(rel_err(step, fwd[:, t]))
+    worst = int(np.argmax(errs))
+    return dict(positions=len(errs), worst_position=worst,
+                rel_err=errs[worst],
+                rel_err_at_chunk_ends=[errs[i] for i in range(
+                    lm.cfg.ssm.chunk - 1, len(errs), lm.cfg.ssm.chunk)])
+
+
+def check_ssm_serve(server, batch) -> dict:
+    """The SSM serve: last-token prefill logits and greedy tokens, kernels
+    on against off, as for yi-34b (only the embedding lookups differ, bit
+    for bit). A decode step against the cache-free forward of its prefix,
+    and the chunked forward against a stepwise decode over
+    SSM_STEP_PROMPT tokens of SSM_STEP_BATCH prompts (a chunk boundary and
+    a ragged tail), each within SERVE_F32_REL_BOUND on a float32 copy of
+    the served weights (which replaces them): in bf16 every one of the
+    64 layers rounds its residual add, and the two paths' different
+    products round differently, which alone moves bf16 logits by a few
+    percent; the reference package drifts as far on the same weights
+    (ROADMAP C19, tests/test_torch_bf16_witness.py). The bf16 readings
+    are printed (``*_bf16``)."""
+    lm, params = server.lm, server.params
+    cfg = lm.cfg
+    prompts = torch.from_numpy(np.stack([r.prompt for r in batch])).to(
+        server.device)
+    max_len = prompts.shape[1] + SERVE_NEW + 8
+    res, tok = plain_and_kernels(lm, params, prompts, max_len)
+    short = prompts[:SSM_STEP_BATCH, :SSM_STEP_PROMPT]
+    out = dict(prefill_rel_err=rel_err(res["kernels"][0], res["plain"][0]))
+    check_greedy(res, out)
+    out["decode_vs_forward_rel_err_bf16"] = decode_vs_forward(
+        lm, params, prompts, tok, max_len)
+    steps = ssm_stepwise(lm, params, short)
+    out["stepwise_rel_err_bf16"] = steps["rel_err"]
+    torch.cuda.empty_cache()
+    lm32 = float32_copy(lm, params)
+    out["decode_vs_forward_rel_err"] = decode_vs_forward(
+        lm32, params, prompts, tok, max_len)
+    steps32 = ssm_stepwise(lm32, params, short)
+    out["stepwise_rel_err"] = steps32["rel_err"]
+    torch.cuda.empty_cache()
+    say(phase="serve_ssm_stepwise", **out, bf16=steps, float32=steps32)
+    assert out["prefill_rel_err"] <= SERVE_REL_BOUND, out
+    assert out["decode_vs_forward_rel_err"] <= SERVE_F32_REL_BOUND, out
+    assert out["stepwise_rel_err"] <= SERVE_F32_REL_BOUND, out
+    return out
+
+
+def serve_requests(cfg) -> list:
+    """The serve mix: SERVE_REQUESTS prompts of SERVE_PROMPT uniform token
+    ids from seed SEED, SERVE_NEW new tokens each, every 3 cycles."""
+    rng = np.random.default_rng(SEED)
+    return [Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32),
+                max_new_tokens=SERVE_NEW, arrival_cycle=i * 3)
+            for i in range(SERVE_REQUESTS)]
+
+
+def check_outputs(stats, reqs, cfg) -> int:
+    """Both batches served, every request's SERVE_NEW tokens in the
+    vocabulary, and the modeled replay equal to SERVE_MODELED. Returns
+    the tokens generated."""
+    assert stats.batches == 2 and stats.requests == SERVE_REQUESTS
+    for r in reqs:
+        assert len(r.output) == SERVE_NEW and all(
+            0 <= t < cfg.vocab_size for t in r.output), f"request {r.rid}"
+    for field, want in SERVE_MODELED.items():
+        assert getattr(stats, field) == want, \
+            f"{field}: {getattr(stats, field)} != {want}"
+    return sum(len(r.output) for r in reqs)
+
+
+def run_family_serve(dev, arch: str, check) -> dict:
+    """Phase 4, serve_moe and serve_ssm: ``Server(arch)`` at its full
+    configuration on the card (random weights from seed 0) serving the
+    yi-34b serve's mix, counters zeroed just before ``serve``. Flash
+    attention must launch once per attention layer per batch, all on its
+    tensor-core route, the scheduler's sort and gather in every embedding
+    lookup, and no other kernel. Then ``check(server, first batch)``."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    server = Server(arch, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = server.cfg
+    reqs = serve_requests(cfg)
+
+    zero_launches()
+    stats = server.serve(reqs)
+    torch.cuda.synchronize()
+    launches = {name: lib.launches for name, lib in LIBS.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    routes = dict(fa_kernel.LIB.entry_launches)
+    attn_layers = sum(cfg.layer_kinds(l)[0] == "attn"
+                      for l in range(cfg.num_layers))
+    assert launches["flash_attention"] == attn_layers * stats.batches \
+        == routes["flash_attention_fwd_tc"], \
+        f"flash attention ran {routes} times"
+    assert launches["bitonic_sort"] > 0 and launches["sorted_gather"] > 0, \
+        "the embedding lookups did not go through the scheduler's kernels"
+    off_path = {n: c for n, c in launches.items() if n not in (
+        "bitonic_sort", "sorted_gather", "flash_attention")}
+    assert not any(off_path.values()), f"off-path launches {off_path}"
+    generated = check_outputs(stats, reqs, cfg)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in leaves(server.params))
+    # the check may replace the served weights by a float32 copy
+    consistency = check(server, server.admit(reqs)[0])
+    return dict(
+        arch=cfg.name, layers=cfg.num_layers, params=cfg.param_count(),
+        param_bytes=param_bytes, init_s=init_s, batches=stats.batches,
+        batch_sizes=[len(b) for b in server.admit(reqs)],
+        prefill_tokens=stats.prefill_tokens, generated_tokens=generated,
+        decode_steps=stats.decode_steps, wall_s=stats.wall_s,
+        prefill_s=stats.prefill_s,
+        prefill_tokens_per_s=stats.prefill_tokens / stats.prefill_s,
+        decode_s_per_step=stats.decode_s / stats.decode_steps,
+        tokens_per_s=(stats.prefill_tokens + generated) / stats.wall_s,
+        launches=launches, flash_attention_routes=routes, peak_mem_gb=peak,
+        sample_output=reqs[0].output, **consistency)
+
+
+def tuned_geometry(cfg) -> dict:
+    """The tuned controller geometry, flattened as perf_model_traces
+    records it."""
+    return {
+        "sched_batch": cfg.scheduler.batch_size,
+        "cache_ways": cfg.cache.associativity,
+        "cache_lines": cfg.cache.num_lines,
+        "num_channels": cfg.channels.num_channels,
+        "mapping": cfg.channels.policy,
+        "dram_sched": cfg.dram_sched.policy,
+        "reorder_window": cfg.dram_sched.reorder_window,
+        "dma_channels": cfg.dma.num_parallel_dma,
+    }
+
+
+def run_autotune() -> dict:
+    """The autotune phase (host only; no kernel may launch): on each of
+    the six pinned family traces (8 ports, 4096-byte rows), the batched
+    engine over FULL_GRID must give ``BENCH_model_traces.json``'s
+    ``families`` entry (read from disk): the geometry, and ``tuned_cycles``
+    to 0.1; over SMALL_GRID the batched engine and the oracle must give
+    the same argmin, and the same table but for C6's last digit. Host
+    seconds of each call per trace."""
+    zero_launches()
+    with open(os.path.join(ROOT, "BENCH_model_traces.json")) as f:
+        bench = json.load(f)["families"]
+    rb = model_traces.REPLAY_ROW_BYTES
+    out = {}
+    for fam, arch in sorted(model_traces.FAMILY_REPRESENTATIVE.items()):
+        want = bench[fam]
+        assert want["representative"] == arch, (fam, want)
+        _, rows, _ = model_traces.load_pinned_trace(arch).replay_arrays(8)
+        full, full_s = timed(lambda: autotune.tune(
+            rows, rb, engine="batched", **FULL_GRID))
+        geom = tuned_geometry(full.config)
+        assert geom == want["geometry"], (fam, geom, want)
+        assert round(full.modeled_cycles, 1) == want["tuned_cycles"], \
+            (fam, full.modeled_cycles, want)
+        small, small_s = timed(lambda: autotune.tune(
+            rows, rb, engine="batched", **SMALL_GRID))
+        oracle, oracle_s = timed(lambda: autotune.tune(
+            rows, rb, engine="oracle", **SMALL_GRID))
+        assert small.config == oracle.config, fam
+        assert [d for d, _ in small.table] == [d for d, _ in oracle.table]
+        for (d, a), (_, b) in zip(small.table, oracle.table):
+            assert abs(a - b) <= C6_ULPS * math.ulp(max(abs(a), abs(b))), \
+                (fam, d, a, b)
+        out[fam] = dict(
+            arch=arch, requests=int(rows.size), geometry=geom,
+            tuned_cycles=full.modeled_cycles,
+            candidates=full.candidates_evaluated, full_grid_s=full_s,
+            small_grid_s=small_s, small_grid_oracle_s=oracle_s,
+            small_argmin=tuned_geometry(small.config),
+            last_digit_differences=sum(a != b for (_, a), (_, b) in zip(
+                small.table, oracle.table)))
+    launches = {name: lib.launches for name, lib in LIBS.items()}
+    assert not any(launches.values()), f"a kernel launched: {launches}"
+    return dict(families=out, numpy=np.__version__, launches=launches)
 
 
 def run_serve(dev) -> dict:
@@ -2293,11 +2729,7 @@ def run_serve(dev) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = server.cfg
-    rng = np.random.default_rng(SEED)
-    reqs = [Request(rid=i, prompt=rng.integers(
-                0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32),
-                max_new_tokens=SERVE_NEW, arrival_cycle=i * 3)
-            for i in range(SERVE_REQUESTS)]
+    reqs = serve_requests(cfg)
 
     zero_launches()
     stats = server.serve(reqs)
@@ -2734,6 +3166,20 @@ def run(dev) -> None:
             kernel_ms=row["ms"], **{k: x for k, x in row.items() if k != "ms"},
             launches=launches["serve"]["flash_attention"])
 
+    # The yi-34b server's 68.78 GB are freed before the next serves.
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(phase="freed", allocated_gb=torch.cuda.memory_allocated(dev) / 1e9)
+    say(phase="autotune", **run_autotune())
+    for path, arch, check in (("serve_moe", SERVE_MOE_ARCH, check_moe_serve),
+                              ("serve_ssm", SERVE_SSM_ARCH, check_ssm_serve)):
+        v = run_family_serve(dev, arch, check)
+        say(phase="slice", path=path, **v)
+        launches[path] = v["launches"]
+        del v
+        gc.collect()
+        torch.cuda.empty_cache()
+
     kernels = []
     for name in LIBS:
         row = main_row[name]
@@ -2742,6 +3188,7 @@ def run(dev) -> None:
             "source": f"src/repro_torch/kernels/csrc/{LIBS[name].name}.cu",
             "replaces": REPLACES[name],
             "launches": launches[PATH_OF[name]][name],
+            "launches_by_path": {p: n[name] for p, n in launches.items()},
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

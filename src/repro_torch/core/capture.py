@@ -35,7 +35,9 @@ within a decode step.
 
 Counterpart of the reference's ``repro.core.capture``, where the tracer
 test is a JAX one. ``MemoryController.capture`` records the controller's
-own calls; the models' ambient recording hooks are ROADMAP A7.6.
+own calls, and the MoE dispatch and SSM state-update hooks
+(``models.blocks``) record into an active capture; the embedding, KV and
+frontend hooks are ROADMAP A7.6.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Model zoo: the LM assembly (dense family so far).
+"""Model zoo: the LM assembly (the dense, MoE and SSM families with text
+modality so far).
 
 Counterpart of ``repro.models``.
 """

@@ -1,14 +1,17 @@
-"""LM assembly for the dense family with text modality.
+"""LM assembly for the dense, MoE and SSM families with text modality.
 
-Counterpart of ``repro.models.lm`` for the families this slice ports: the
-dense transformers (yi-34b, granite-34b, h2o-danube-1.8b, internlm2-20b).
-The other families, the MoE expert-parallel strategy and a device mesh
-raise ``NotImplementedError`` naming their ROADMAP item. The reference
-scans stacked layer groups with ``lax.scan``; here the layer walk is a
-Python loop over the same stacked leaves, ``w[l]`` a view.
+Counterpart of ``repro.models.lm`` for the families ported so far: the
+dense transformers (yi-34b, granite-34b, h2o-danube-1.8b, internlm2-20b),
+the MoE transformers (qwen2-moe-a2.7b, mixtral-8x7b; the token-choice
+"tp" strategy) and Mamba-2 (mamba2-2.7b). The hybrid family (jamba's
+period-8 pattern), the audio and vision frontends, the MoE
+expert-parallel strategy and a device mesh raise ``NotImplementedError``
+naming their ROADMAP item. The reference scans stacked layer groups with
+``lax.scan``; here the layer walk is a Python loop over the same stacked
+leaves, ``w[l]`` a view.
 
 Entry points (the shape cells map onto these):
-  ``loss``        → train_4k        (fwd+CE)
+  ``loss``        → train_4k        (fwd+CE, plus the MoE aux losses)
   ``prefill``     → prefill_32k     (full forward, returns serve cache)
   ``decode_step`` → decode_32k      (one token, cache updated in place)
 """
@@ -23,8 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks, layers
-from repro_torch.models.blocks import AttnCache
-from repro_torch.models.params import init_params, map_tree
+from repro_torch.models.blocks import AttnCache, MambaCache
+from repro_torch.models.params import init_params, mamba_dims, map_tree
 
 
 @dataclasses.dataclass
@@ -67,36 +70,70 @@ class LM:
             mode="add", use_kernels=self.cfg.use_kernels)
         return {**params, "embed": {**params["embed"], "table": new_table}}
 
+    def _moe_groups(self, x) -> int:
+        """Scheduler instances for MoE dispatch: the data-parallel shards
+        of the token batch on a mesh (A9); 1, the global scheduler, off
+        one."""
+        return 1
+
     # ---------------- block walker ------------------------------------------
     def _run_block(self, bp, x, positions, mode: str, cache=None,
                    cur_len=None):
-        """One (attn, mlp) block with residuals. Returns (x, kv)."""
-        if mode == "decode":
-            out, kv = blocks.attn_decode(bp["attn"], x, cache["attn"],
-                                         cur_len, self.cfg)
+        """One (mixer, ffn) sub-block with residuals.
+
+        Returns (x, aux_losses or None, new_cache)."""
+        cfg = self.cfg
+        decode = mode == "decode"
+        aux, new_cache = None, {}
+        if "attn" in bp:
+            if decode:
+                out, kv = blocks.attn_decode(bp["attn"], x, cache["attn"],
+                                             cur_len, cfg)
+            else:
+                out, kv = blocks.attn_forward(bp["attn"], x, cfg, positions)
             x = x + out
-            return x + blocks.mlp_forward(bp["mlp"], x[:, None, :])[:, 0], \
-                {"attn": kv}
-        out, kv = blocks.attn_forward(bp["attn"], x, self.cfg, positions)
-        x = x + out
-        return x + blocks.mlp_forward(bp["mlp"], x), {"attn": kv}
+            new_cache["attn"] = kv
+        elif "mamba" in bp:
+            if decode:
+                out, mc = blocks.mamba_decode(bp["mamba"], x,
+                                              cache["mamba"], cfg)
+            else:
+                out, mc = blocks.mamba_forward(bp["mamba"], x, cfg)
+            x = x + out
+            new_cache["mamba"] = mc
+        if "mlp" in bp:
+            if decode:
+                x = x + blocks.mlp_forward(bp["mlp"], x[:, None, :])[:, 0]
+            else:
+                x = x + blocks.mlp_forward(bp["mlp"], x)
+        elif "moe" in bp:
+            xin = x[:, None, :] if decode else x
+            out, aux = blocks.moe_ffn(
+                bp["moe"], xin, cfg, no_drop=decode,
+                dispatch=cfg.moe_dispatch, num_groups=self._moe_groups(xin))
+            x = x + (out[:, 0] if decode else out)
+        return x, aux, new_cache
 
     def _layers(self, params, x, positions, mode: str, cache=None,
-                cur_len=None, on_kv=None):
-        """Walk the stacked layers in order; ``on_kv(l, kv)`` receives each
-        layer's K/V in prefill mode. Returns x."""
+                cur_len=None, on_cache=None):
+        """Walk the stacked layers in order; ``on_cache(l, c)`` receives
+        each layer's new cache entries (``{"attn": kv}`` or ``{"mamba":
+        state}``). Returns (x, aux summed over layers)."""
         stacked = params["layers"]["pos0"]
+        aux = _zero_aux(x.device)
         for l in range(self.cfg.num_layers):
             bp = map_tree(lambda t: t[l], stacked)
             c = None
             if cache is not None:
-                kv = cache["pos0"]["attn"]
-                c = {"attn": type(kv)(*(t[l] for t in kv))}
-            x, kv = self._run_block(bp, x, positions, mode, cache=c,
-                                    cur_len=cur_len)
-            if on_kv is not None:
-                on_kv(l, kv["attn"])
-        return x
+                c = {k: type(v)(*(t[l] for t in v))
+                     for k, v in cache["pos0"].items()}
+            x, a, nc = self._run_block(bp, x, positions, mode, cache=c,
+                                       cur_len=cur_len)
+            if a is not None:
+                aux = {k: aux[k] + a[k] for k in aux}
+            if on_cache is not None:
+                on_cache(l, nc)
+        return x, aux
 
     # ---------------- public entry points -----------------------------------
     def _positions(self, x):
@@ -104,14 +141,14 @@ class LM:
         return torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
 
     def _backbone(self, params, batch):
-        """Embed → layers → final norm. Returns (hidden, mask)."""
+        """Embed → layers → final norm. Returns (hidden, aux, mask)."""
         x, mask = self._embed_inputs(params, batch)
-        x = self._layers(params, x, self._positions(x), "train")
-        return layers.rms_norm(x, params["final_norm"]), mask
+        x, aux = self._layers(params, x, self._positions(x), "train")
+        return layers.rms_norm(x, params["final_norm"]), aux, mask
 
     def forward(self, params, batch) -> Tuple[torch.Tensor, Dict]:
-        x, _ = self._backbone(params, batch)
-        return x @ params["lm_head"], _zero_aux(x.device)
+        x, aux, _ = self._backbone(params, batch)
+        return x @ params["lm_head"], aux
 
     def _ce_terms(self, logits, labels, mask):
         """(Σ masked CE, Σ masked logz², Σ mask) in fp32, padding masked."""
@@ -127,11 +164,12 @@ class LM:
                 ((logz * mask) ** 2).sum(), mask.sum())
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
-        """Mean next-token CE plus the 1e-4 z-loss. With ``loss_chunks``
-        the LM head and CE run one sequence chunk at a time (the
-        (B,S,V) logits never exist at once); the value is the same."""
+        """Mean next-token CE plus the 1e-4 z-loss, and for MoE models
+        ``1e-2 * load_balance + router_z``. With ``loss_chunks`` the LM
+        head and CE run one sequence chunk at a time (the (B,S,V) logits
+        never exist at once); the value is the same."""
         cfg = self.cfg
-        x, x_mask = self._backbone(params, batch)
+        x, aux, x_mask = self._backbone(params, batch)
         S = x.shape[1]
         labels = batch["labels"]
         n = cfg.loss_chunks or 1
@@ -144,8 +182,10 @@ class LM:
         denom = torch.clamp(m_sum, min=1.0)
         loss = ce_sum / denom
         z_loss = 1e-4 * z_sum / denom
-        return loss + z_loss, {"ce_loss": loss, "z_loss": z_loss,
-                               **_zero_aux(x.device)}
+        total = loss + z_loss
+        if cfg.moe is not None:
+            total = total + 1e-2 * aux["load_balance"] + aux["router_z"]
+        return total, {"ce_loss": loss, "z_loss": z_loss, **aux}
 
     # ---------------- serving -----------------------------------------------
     def _cache_len(self, max_len: int) -> int:
@@ -153,10 +193,25 @@ class LM:
         return min(w, max_len) if w is not None else max_len
 
     def _zero_cache(self, batch_size: int, C: int):
+        """Zero serve cache matching the layer pattern: per period
+        position an ``AttnCache`` / ``QuantAttnCache`` of (layers, B, C,
+        KV, hd) leaves, or a ``MambaCache`` of (layers, B, 3, d_in),
+        (layers, B, 3, N) twice and the (layers, B, H, P, N) float32
+        state."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch_size, C, cfg.num_kv_heads,
-                 cfg.head_dim)
+        n = cfg.num_layers
         kw = dict(device=self.device)
+        dt = getattr(torch, cfg.param_dtype)
+        mixer, _ = cfg.layer_kinds(0)
+        if mixer == "mamba":
+            d_in, H, P, N = mamba_dims(cfg)
+            return {"pos0": {"mamba": MambaCache(
+                conv_x=torch.zeros((n, batch_size, 3, d_in), dtype=dt, **kw),
+                conv_b=torch.zeros((n, batch_size, 3, N), dtype=dt, **kw),
+                conv_c=torch.zeros((n, batch_size, 3, N), dtype=dt, **kw),
+                ssm=torch.zeros((n, batch_size, H, P, N),
+                                dtype=torch.float32, **kw))}}
+        shape = (n, batch_size, C, cfg.num_kv_heads, cfg.head_dim)
         if cfg.kv_cache_dtype == "int8":
             i8 = dict(dtype=torch.int8, **kw)
             f32 = dict(dtype=torch.float32, **kw)
@@ -164,57 +219,67 @@ class LM:
                 k=torch.zeros(shape, **i8), v=torch.zeros(shape, **i8),
                 k_scale=torch.zeros(shape[:-1], **f32),
                 v_scale=torch.zeros(shape[:-1], **f32))}}
-        dt = getattr(torch, cfg.param_dtype)
         return {"pos0": {"attn": AttnCache(
             k=torch.zeros(shape, dtype=dt, **kw),
             v=torch.zeros(shape, dtype=dt, **kw))}}
 
     def init_cache(self, batch_size: int, max_len: int):
-        """Zero serve cache: per leaf, (layers, B, C, KV, hd)."""
+        """Zero serve cache (see ``_zero_cache``); attention leaves hold
+        ``max_len`` positions, or the SWA window."""
         return self._zero_cache(batch_size, self._cache_len(max_len))
 
     def prefill(self, params, batch, max_len: int):
         """Full-context forward; returns (last_logits, cache, cur_len).
 
-        Each layer's K/V goes into the serve cache (ring for SWA, int8 when
-        configured) as soon as the layer has run, so no stack of raw K/V
-        exists beside the cache."""
+        Each layer's cache entry goes into the serve cache (K/V as a ring
+        for SWA, int8 when configured; the Mamba conv taps and SSD state
+        as they are) as soon as the layer has run, so no stack of raw
+        K/V exists beside the cache."""
         cfg = self.cfg
         x, _ = self._embed_inputs(params, batch)
         B, S, _ = x.shape
         # attn_prefill_cache's length: the whole context, or the window
         C = max_len if cfg.attn_window is None else cfg.attn_window
         cache = self._zero_cache(B, C)
-        dst = cache["pos0"]["attn"]
 
-        def store(l, kv):
-            for buf, new in zip(dst, blocks.attn_prefill_cache(
-                    kv, cfg, S, max_len)):
-                buf[l].copy_(new)
+        def store(l, new):
+            for kind, entry in new.items():
+                if kind == "attn":
+                    entry = blocks.attn_prefill_cache(entry, cfg, S, max_len)
+                for buf, t in zip(cache["pos0"][kind], entry):
+                    buf[l].copy_(t)
 
-        x = self._layers(params, x, self._positions(x), "prefill",
-                         on_kv=store)
+        x, _ = self._layers(params, x, self._positions(x), "prefill",
+                            on_cache=store)
         xn = layers.rms_norm(x[:, -1], params["final_norm"])
         logits = (xn @ params["lm_head"])[:, :cfg.vocab_size]
         return logits, cache, S
 
     def decode_step(self, params, token: torch.Tensor, cache, cur_len: int):
-        """One serve step: embed token (B,), walk layers, append each
-        layer's K/V to ``cache`` in place. Returns (logits, cache)."""
+        """One serve step: embed token (B,), walk layers, update ``cache``
+        in place (each layer's K/V appended, or its Mamba state
+        replaced). Returns (logits, cache)."""
         cfg = self.cfg
         # The 1-D decode token stream is controller traffic too: one
         # scheduler batch through mc_embed, not a raw bypassing gather.
         x = layers.mc_embed(params["embed"]["table"], token, cfg.mc,
                             use_kernels=cfg.use_kernels)
-        x = self._layers(params, x, None, "decode", cache=cache,
-                         cur_len=cur_len)
+
+        def store(l, new):
+            # attn_decode appended in place; a Mamba step's state is new
+            if "mamba" in new:
+                for buf, t in zip(cache["pos0"]["mamba"], new["mamba"]):
+                    buf[l].copy_(t)
+
+        x, _ = self._layers(params, x, None, "decode", cache=cache,
+                            cur_len=cur_len, on_cache=store)
         xn = layers.rms_norm(x, params["final_norm"])
         return (xn @ params["lm_head"])[:, :cfg.vocab_size], cache
 
 
 def _zero_aux(device) -> Dict[str, torch.Tensor]:
     """The MoE auxiliary losses of the reference's metrics, zero for a
-    dense model."""
+    model without MoE layers."""
     return {"load_balance": torch.zeros((), device=device),
             "router_z": torch.zeros((), device=device)}
 
@@ -227,10 +292,11 @@ def build_lm(cfg: ArchConfig, mesh=None, *, moe_strategy: str = "tp",
                                   "ROADMAP A9")
     if moe_strategy == "ep":
         raise NotImplementedError("moe_strategy='ep' (models/moe_ep.py) "
-                                  "waits for ROADMAP A7 (MoE)")
-    if cfg.family != "dense" or cfg.modality != "text":
+                                  "needs a device mesh: ROADMAP A9")
+    if cfg.family not in ("dense", "moe", "ssm") or cfg.modality != "text" \
+            or cfg.scan_period != 1:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with {cfg.modality!r} "
-            f"modality waits for ROADMAP A7 (the port runs the dense "
-            f"family with text modality)")
+            f"modality waits for ROADMAP A7 (the port runs the dense, moe "
+            f"and ssm families with text modality)")
     return LM(cfg=cfg, device=device)
