@@ -25,8 +25,10 @@ Phases (a failing phase raises and the script exits non-zero):
    f16 inputs (the tensor-core kernel) bit-equal to the same kernel's
    float32 output (``out_dtype=torch.float32``) rounded once, and that
    within 3e-5 of the plain float32 result (at the serve path's shape,
-   windows, bidirectional hd 80, MQA, ragged S, S = 1). The sort also at
-   N equal to its default chunk, twice it and eight times it, G > 1. The
+   windows, bidirectional hd 80, MQA, ragged S, S = 1, and the encoder
+   path's own float32 bidirectional shape, 8 x 1024, 16/16 heads of 80).
+   The sort also at N equal to its default chunk, twice it and eight
+   times it, G > 1. The
    probe also with one hot set at the Table I shape, from tied ages and
    with 32768 sets (int32 sort keys in its grouping). The read/write
    probe (``cache_probe_rw``, the set-parallel cache engine's tag walk)
@@ -168,6 +170,48 @@ Phases (a failing phase raises and the script exits non-zero):
      SERVE_F32_REL_BOUND, the bf16 readings printed. Each prints parameter
      bytes, prefill seconds, decode seconds a step and tokens a second.
 
+7. the rest of the zoo, each after the earlier paths' memory is freed,
+   random weights from seed 0, counters zeroed just before the path and
+   read just after; each prints its parameter bytes, its seconds and the
+   card's ``nvidia-smi`` name and power limit:
+   - serve_hybrid: jamba-v0.1-52b cut to 16 of its 32 layers (two periods
+     of 8: attention at position 4, Mamba elsewhere, MoE 16 experts top-2
+     at the odd positions; 52.00 GB bf16, uncut 102.92 GB), through
+     ``CutServer`` (the cut is this script's), serving the yi-34b serve's
+     mix: flash attention once per attention layer per batch (4), all on
+     its tensor-core route, the sort and gather in every lookup, no other
+     kernel, the modeled replay equal to ``SERVE_MODELED``. On the bf16
+     weights B6's block within SERVE_ATTN_ULPS at both attention layers
+     (``prefill_layers``, whose walk must give the prefill's logits bit
+     for bit, with each MoE layer's drops), the logit readings printed
+     (routes swap in bf16, ROADMAP C18); then on a float32 copy cut to
+     one period (8 layers, 53 GB) the MoE serve's gates at
+     SERVE_F32_REL_BOUND (``check_moe_serve`` with the cut).
+   - encoder: hubert-xlarge uncut (48 layers, 2.52 GB), ``forward`` and
+     ``loss`` on ``make_batch``'s 8 x 1024 float32 frames: the frames keep
+     the residual stream float32, as in the reference, so 48 flash
+     attention launches a call, all on the float32 (CUDA-core) route, and
+     no sort, gather or other kernel; logits and loss kernels on against
+     off within SERVE_F32_REL_BOUND (B6 on this route at this shape is
+     held to its plain version at 3e-5 in phase 3's attention cases).
+   - vlm: internvl2-76b cut to 24 of its 80 layers (45.33 GB, uncut
+     141.16 GB): ``LM.prefill`` of 4 sequences of 256 patches and 1024
+     text tokens from ``make_batch``, then 16 greedy ``decode_step``s:
+     flash attention 24 times on its tensor-core route, the sort and the
+     gather 17 times each (every text lookup), no other kernel. On the
+     bf16 weights greedy tokens kernels on against off (``check_greedy``)
+     and B6's block within SERVE_ATTN_ULPS at every layer; the logits
+     printed beside a reordered-sums control; on a float32 copy cut to 8
+     layers, prefill kernels on against off and a decode step against
+     the cache-free forward within SERVE_F32_REL_BOUND (``check_vlm``).
+   - capture: ``capture_model_trace`` on the card for the six family
+     representatives at their smoke configs, on the port's seeded
+     params; every value-independent request equal to the same capture on
+     CPU copies of the params, as many value-dependent ones (decode
+     tokens, MoE routes; their differing rows printed). The sort, the
+     gather, B3's ``add`` (the embedding-gradient update) and flash
+     attention must each have run.
+
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches on its own path, and ``launches_by_path`` on every path); the
 last line is ``{"ok": true, "device": {...}}``.
@@ -213,8 +257,11 @@ from repro_torch.core.timing import (DDR4_2400, simulate_dram_access,  # noqa: E
                                      simulate_dram_access_windowed_seq,
                                      simulate_dram_sched,
                                      simulate_dram_sched_seq)
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.data import model_traces  # noqa: E402
-from repro_torch.data.synthetic import hog_victim_workload  # noqa: E402
+from repro_torch.data.synthetic import (hog_victim_workload,  # noqa: E402
+                                        make_batch)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import tracing  # noqa: E402
 from repro_torch.kernels.bitonic_sort import kernel as bs_kernel  # noqa: E402
@@ -228,7 +275,7 @@ from repro_torch.kernels.sorted_gather import kernel as sg_kernel  # noqa: E402
 from repro_torch.kernels.sorted_scatter import kernel as ss_kernel  # noqa: E402
 from repro_torch.kernels.sorted_scatter.coalesce import coalesce_add_runs  # noqa: E402
 from repro_torch.launch.serve import Request, Server, ServeStats  # noqa: E402
-from repro_torch.models import blocks, layers  # noqa: E402
+from repro_torch.models import blocks, build_lm, layers  # noqa: E402
 from repro_torch.models.params import leaves, map_tree  # noqa: E402
 
 LIBS = {"bitonic_sort": bs_kernel.LIB, "sorted_gather": sg_kernel.LIB,
@@ -297,6 +344,8 @@ ATTN_CASES = [
     ("float32 S 1", (3, 1, 56, 8, 128), torch.float32, True, None),
     ("float32 bidirectional window 40", (1, 520, 4, 2, 64), torch.float32,
      False, 40),
+    ("hubert encoder float32 bidirectional hd 80", (8, 1024, 16, 16, 80),
+     torch.float32, False, None),
     ("f16 window 3", (1, 200, 4, 2, 128), torch.float16, True, 3),
 ]
 # Relative bound of the serve path's self-consistency (max |diff| over the
@@ -336,6 +385,24 @@ SERVE_MOE_ARCH, SERVE_SSM_ARCH = "qwen2-moe-a2.7b", "mamba2-2.7b"
 SSM_STEP_PROMPT, SSM_STEP_BATCH = 300, 2
 # The MoE serve's float32 checks: the first prompts of its first batch.
 MOE_F32_BATCH = 2
+# The rest of the zoo on the card, each at full width. The hybrid serve:
+# jamba-v0.1-52b cut to 16 of its 32 layers (two periods, 52.00 GB of bf16
+# weights; uncut it is 102.92 GB, past the card's 80 GB), serving the
+# yi-34b serve's mix; its float32 gates on a copy cut to one period (8
+# layers, 53 GB in float32).
+SERVE_HYBRID_ARCH, SERVE_HYBRID_LAYERS = "jamba-v0.1-52b", 16
+SERVE_HYBRID_F32_LAYERS = 8
+# The encoder: hubert-xlarge uncut (48 layers, 2.52 GB), forward and loss
+# on make_batch's frames: 8 clips of 1024 frames (about 20 s of audio at
+# 50 frames a second).
+ENCODER_ARCH, ENCODER_BATCH, ENCODER_FRAMES = "hubert-xlarge", 8, 1024
+# The VLM: internvl2-76b cut to 24 of its 80 layers (45.33 GB; uncut
+# 141.16 GB), a prefill of 4 sequences of its 256 patches and 1024 text
+# tokens from make_batch, then SERVE_NEW greedy decode steps.
+VLM_ARCH, VLM_LAYERS, VLM_BATCH, VLM_TEXT = "internvl2-76b", 24, 4, 1024
+# Its float32 gates on a copy of the served weights cut to 8 layers
+# (35.8 GB in float32).
+VLM_F32_LAYERS = 8
 # The autotune phase: benchmarks/perf_model_traces.py's two grids (that
 # module imports the reference package, so they are copied here). The full
 # grid on the six pinned family traces reproduces BENCH_model_traces.json's
@@ -2307,16 +2374,16 @@ def serve_drift(lm, params, prompts, tok, max_len, full, step) -> dict:
         decode_walk_is_decode_step=same_bits(logits["decode"], step))
 
 
-def plain_and_kernels(lm, params, prompts, max_len):
-    """Prefill ``prompts`` and take one decode step, kernels off
-    (``plain``) then on (``kernels``); the step's token is the plain
-    prefill's greedy one. Returns ({name: (prefill logits, step logits)},
-    token)."""
+def plain_and_kernels(lm, params, batch, max_len):
+    """Prefill ``batch`` (``{"tokens": ...}``, with the VLM's patches too)
+    and take one decode step, kernels off (``plain``) then on
+    (``kernels``); the step's token is the plain prefill's greedy one.
+    Returns ({name: (prefill logits, step logits)}, token)."""
     plain = dataclasses.replace(lm, cfg=dataclasses.replace(
         lm.cfg, use_kernels=False))
     res, tok = {}, None
     for name, m in (("plain", plain), ("kernels", lm)):
-        logits, cache, cur = m.prefill(params, {"tokens": prompts}, max_len)
+        logits, cache, cur = m.prefill(params, batch, max_len)
         if tok is None:
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
         step, cache = m.decode_step(params, tok, cache, cur)
@@ -2356,7 +2423,7 @@ def check_serve(server, batch) -> dict:
     prompts = torch.from_numpy(np.stack([r.prompt for r in batch])).to(
         server.device)
     max_len = prompts.shape[1] + SERVE_NEW + 8
-    res, tok = plain_and_kernels(lm, params, prompts, max_len)
+    res, tok = plain_and_kernels(lm, params, {"tokens": prompts}, max_len)
     full = lm.forward(params, {"tokens": torch.cat(
         [prompts, tok[:, None]], dim=1)})[0][:, -1, :lm.cfg.vocab_size]
     out = dict(prefill_rel_err=rel_err(res["kernels"][0], res["plain"][0]),
@@ -2389,68 +2456,89 @@ def same_routes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.sort(-1).values == b.sort(-1).values).all(-1)
 
 
-def moe_prefill_layers(lm, params, prompts, prefill_logits) -> dict:
-    """The MoE prefill's layers on ``prompts``, each run by ``lm``'s own
-    ``_run_block`` (kernels on). At each layer, on that layer's input:
+def prefill_layers(lm, params, batch, prefill_logits) -> dict:
+    """The prefill's layers on ``batch``, each run by ``lm``'s own
+    ``_run_block`` (kernels on), layer ``l`` at period position ``l % P``
+    of group ``l // P``. At each attention layer, on that layer's input:
     B6's attention block against the plain one (``attn_b6``, max |diff|
     over max |plain|; ``attn_b6_ulps`` in bf16 ulps of the plain block's
-    largest magnitude), the assignments the layer's routes drop past
-    capacity (``dropped``), and ``route_flips``, the tokens whose router
-    picks other experts when the layer's attention is the plain block. A
-    route is discrete: where two experts' router logits lie closer than
-    the bf16 differences between B6 and the plain attention, the token
-    goes to other experts and its output moves by tens of percent. The
-    walk must give the prefill's logits bit for bit."""
+    largest magnitude). At each MoE layer: the assignments its routes drop
+    past capacity (``dropped``), and where the layer's mixer is attention,
+    ``route_flips``, the tokens whose router picks other experts when that
+    attention is the plain block. A route is discrete: where two experts'
+    router logits lie closer than the bf16 differences between B6 and the
+    plain attention, the token goes to other experts and its output moves
+    by tens of percent. The walk must give the prefill's logits bit for
+    bit."""
     cfg = lm.cfg
-    m = cfg.moe
+    P = cfg.scan_period
     plain = dataclasses.replace(cfg, use_kernels=False)
-    x, _ = lm._embed_inputs(params, {"tokens": prompts})
+    x, _ = lm._embed_inputs(params, batch)
     pos = lm._positions(x)
     T = x.shape[0] * x.shape[1]
-    capacity = blocks.moe_capacity(cfg, T)
+    capacity = blocks.moe_capacity(cfg, T) if cfg.moe else None
     out = collections.defaultdict(list)
     for l in range(cfg.num_layers):
-        bp = map_tree(lambda t: t[l], params["layers"]["pos0"])
-        b6 = blocks.attn_forward(bp["attn"], x, cfg, pos)[0]
-        ref = blocks.attn_forward(bp["attn"], x, plain, pos)[0]
-        out["attn_b6"].append(rel_err(b6, ref))
-        out["attn_b6_ulps"].append(block_ulps(b6, ref))
-        ek = blocks.moe_route(bp["moe"], x + b6, cfg)[4]
-        ep = blocks.moe_route(bp["moe"], x + ref, cfg)[4]
-        out["route_flips"].append(int((~same_routes(ep, ek)).sum()))
-        keep = blocks.moe_slots(ek, 1, m.num_experts, capacity,
-                                cfg.moe_dispatch)[1]
-        out["dropped"].append(int((~keep).sum()))
-        del b6, ref
+        bp = map_tree(lambda t: t[l // P], params["layers"][f"pos{l % P}"])
+        mixed = {}
+        if "attn" in bp:
+            b6 = blocks.attn_forward(bp["attn"], x, cfg, pos)[0]
+            ref = blocks.attn_forward(bp["attn"], x, plain, pos)[0]
+            out["attn_layers"].append(l)
+            out["attn_b6"].append(rel_err(b6, ref))
+            out["attn_b6_ulps"].append(block_ulps(b6, ref))
+            if "moe" in bp:
+                mixed = {"kernels": x + b6, "plain": x + ref}
+            del b6, ref
+        elif "moe" in bp:
+            mixed = {"kernels": x + blocks.mamba_forward(bp["mamba"], x,
+                                                         cfg)[0]}
+        if "moe" in bp:
+            routes = {n: blocks.moe_route(bp["moe"], v, cfg)[4]
+                      for n, v in mixed.items()}
+            if "plain" in routes:
+                out["route_flips"].append(int((~same_routes(
+                    routes["plain"], routes["kernels"])).sum()))
+            keep = blocks.moe_slots(routes["kernels"], 1,
+                                    cfg.moe.num_experts, capacity,
+                                    cfg.moe_dispatch)[1]
+            out["dropped"].append(int((~keep).sum()))
+            del mixed, routes
         x = lm._run_block(bp, x, pos, "prefill")[0]
     assert same_bits(head_logits(cfg, params, x), prefill_logits), \
         "the layer walk does not give the prefill's logits"
     worst = int(np.argmax(out["attn_b6_ulps"]))
-    return dict(out, capacity=capacity, assignments=T * m.top_k,
-                dropped_share=sum(out["dropped"]) / (
-                    cfg.num_layers * T * m.top_k),
-                attn_b6_worst_layer=worst,
-                attn_b6_worst_ulps=out["attn_b6_ulps"][worst])
+    res = dict(out, attn_b6_worst_layer=out["attn_layers"][worst],
+               attn_b6_worst_ulps=out["attn_b6_ulps"][worst])
+    if cfg.moe:
+        assignments = len(out["dropped"]) * T * cfg.moe.top_k
+        res.update(capacity=capacity, assignments=assignments,
+                   dropped_share=sum(out["dropped"]) / assignments,
+                   route_flips=out["route_flips"])
+    return res
 
 
-def float32_in_place(tree) -> None:
+def float32_in_place(tree, groups=None, layer=False) -> None:
     """Replace each leaf of a parameter tree by its float32 copy, one leaf
     at a time, so that the two copies never coexist whole (qwen2-moe's
-    float32 copy alone is 57.3 GB)."""
+    float32 copy alone is 57.3 GB); below ``layers``, only the first
+    ``groups`` groups of each leaf (all when None)."""
     for k, v in tree.items():
         if isinstance(v, dict):
-            float32_in_place(v)
+            float32_in_place(v, groups, layer or k == "layers")
         else:
-            tree[k] = v.float()
+            tree[k] = (v[:groups] if layer else v).float()
             del v
 
 
-def float32_copy(lm, params):
-    """``lm`` on float32 parameters; ``params`` become their float32 copy
-    in place."""
-    float32_in_place(params)
+def float32_copy(lm, params, layers=None):
+    """``lm`` on float32 parameters, cut to its first ``layers`` layers
+    (whole periods; all when None); ``params`` become their float32 copy
+    in place, and the bf16 weights are freed as the copy grows."""
+    layers = layers or lm.cfg.num_layers
+    float32_in_place(params, layers // lm.cfg.scan_period)
     return dataclasses.replace(lm, cfg=dataclasses.replace(
-        lm.cfg, param_dtype="float32"))
+        lm.cfg, num_layers=layers, param_dtype="float32"))
 
 
 def no_drop(lm):
@@ -2464,26 +2552,29 @@ def no_drop(lm):
             m, capacity_factor=float(m.num_experts))))
 
 
-def decode_vs_forward(lm, params, prompts, tok, max_len) -> float:
-    """``lm``'s decode step of ``tok`` after a prefill of ``prompts``
-    against the cache-free forward of both, at the last position."""
-    _, cache, cur = lm.prefill(params, {"tokens": prompts}, max_len)
+def decode_vs_forward(lm, params, batch, tok, max_len) -> float:
+    """``lm``'s decode step of ``tok`` after a prefill of ``batch``
+    (``{"tokens": ...}``, with the VLM's patches too) against the
+    cache-free forward of both, at the last position."""
+    _, cache, cur = lm.prefill(params, batch, max_len)
     step, cache = lm.decode_step(params, tok, cache, cur)
     del cache
-    full = lm.forward(params, {"tokens": torch.cat(
-        [prompts, tok[:, None]], dim=1)})[0][:, -1, :lm.cfg.vocab_size]
+    full = lm.forward(params, {**batch, "tokens": torch.cat(
+        [batch["tokens"], tok[:, None]], dim=1)})[0][:, -1,
+                                                    :lm.cfg.vocab_size]
     assert bool(torch.isfinite(full).all()), "forward: non-finite logits"
     return rel_err(step, full)
 
 
-def check_moe_serve(server, batch) -> dict:
-    """The MoE serve, through ``prefill``, ``decode_step`` and ``forward``.
-    On the served bf16 weights: B6's block within SERVE_ATTN_ULPS at each
-    of the 24 layers, the prefill's drops and route flips
-    (``moe_prefill_layers``), and the logit comparisons printed
-    (``*_bf16``): bf16 swaps the routes of hundreds of tokens a layer
-    between two paths, which moves their logits by tens of percent
-    (ROADMAP C18). Gated on a float32 copy of the same weights, for
+def check_moe_serve(server, batch, f32_layers=None) -> dict:
+    """The MoE serve (and the hybrid's), through ``prefill``,
+    ``decode_step`` and ``forward``. On the served bf16 weights: B6's
+    block within SERVE_ATTN_ULPS at each attention layer, the prefill's
+    drops and route flips (``prefill_layers``), and the logit comparisons
+    printed (``*_bf16``): bf16 swaps the routes of hundreds of tokens a
+    layer between two paths, which moves their logits by tens of percent
+    (ROADMAP C18). Gated on a float32 copy of the same weights (cut to
+    ``f32_layers`` layers when given; it replaces them), for
     MOE_F32_BATCH prompts, within SERVE_F32_REL_BOUND: last-token prefill
     logits kernels on against off, with greedy tokens, and a decode step
     against the cache-free forward on ``no_drop``."""
@@ -2491,8 +2582,8 @@ def check_moe_serve(server, batch) -> dict:
     prompts = torch.from_numpy(np.stack([r.prompt for r in batch])).to(
         server.device)
     max_len = prompts.shape[1] + SERVE_NEW + 8
-    res, tok = plain_and_kernels(lm, params, prompts, max_len)
-    walk = moe_prefill_layers(lm, params, prompts, res["kernels"][0])
+    res, tok = plain_and_kernels(lm, params, {"tokens": prompts}, max_len)
+    walk = prefill_layers(lm, params, {"tokens": prompts}, res["kernels"][0])
     torch.cuda.empty_cache()
     nd = no_drop(lm)
     n = prompts.numel() + tok.numel()
@@ -2500,7 +2591,7 @@ def check_moe_serve(server, batch) -> dict:
     out = dict(prefill_rel_err_bf16=rel_err(res["kernels"][0],
                                             res["plain"][0]),
                decode_vs_forward_rel_err_bf16=decode_vs_forward(
-                   nd, params, prompts, tok, max_len))
+                   nd, params, {"tokens": prompts}, tok, max_len))
     say(phase="serve_moe_layers", **out, **walk)
     assert walk["attn_b6_worst_ulps"] <= SERVE_ATTN_ULPS, \
         f"B6's attention block {walk['attn_b6_worst_ulps']} bf16 ulps " \
@@ -2512,13 +2603,15 @@ def check_moe_serve(server, batch) -> dict:
     del res
     torch.cuda.empty_cache()
 
-    lm32 = float32_copy(lm, params)
-    prompts = prompts[:MOE_F32_BATCH]
-    res, tok = plain_and_kernels(lm32, params, prompts, max_len)
+    lm32 = float32_copy(lm, params, f32_layers)
+    out.update(float32_layers=lm32.cfg.num_layers,
+               float32_param_bytes=param_bytes(params))
+    batch32 = {"tokens": prompts[:MOE_F32_BATCH]}
+    res, tok = plain_and_kernels(lm32, params, batch32, max_len)
     out["prefill_rel_err"] = rel_err(res["kernels"][0], res["plain"][0])
     check_greedy(res, out)
     out["decode_vs_forward_rel_err"] = decode_vs_forward(
-        no_drop(lm32), params, prompts, tok, max_len)
+        no_drop(lm32), params, batch32, tok, max_len)
     say(phase="serve_moe_float32", **out)
     assert out["prefill_rel_err"] <= SERVE_F32_REL_BOUND, out
     assert out["decode_vs_forward_rel_err"] <= SERVE_F32_REL_BOUND, out
@@ -2563,18 +2656,18 @@ def check_ssm_serve(server, batch) -> dict:
     prompts = torch.from_numpy(np.stack([r.prompt for r in batch])).to(
         server.device)
     max_len = prompts.shape[1] + SERVE_NEW + 8
-    res, tok = plain_and_kernels(lm, params, prompts, max_len)
+    res, tok = plain_and_kernels(lm, params, {"tokens": prompts}, max_len)
     short = prompts[:SSM_STEP_BATCH, :SSM_STEP_PROMPT]
     out = dict(prefill_rel_err=rel_err(res["kernels"][0], res["plain"][0]))
     check_greedy(res, out)
     out["decode_vs_forward_rel_err_bf16"] = decode_vs_forward(
-        lm, params, prompts, tok, max_len)
+        lm, params, {"tokens": prompts}, tok, max_len)
     steps = ssm_stepwise(lm, params, short)
     out["stepwise_rel_err_bf16"] = steps["rel_err"]
     torch.cuda.empty_cache()
     lm32 = float32_copy(lm, params)
     out["decode_vs_forward_rel_err"] = decode_vs_forward(
-        lm32, params, prompts, tok, max_len)
+        lm32, params, {"tokens": prompts}, tok, max_len)
     steps32 = ssm_stepwise(lm32, params, short)
     out["stepwise_rel_err"] = steps32["rel_err"]
     torch.cuda.empty_cache()
@@ -2609,16 +2702,44 @@ def check_outputs(stats, reqs, cfg) -> int:
     return sum(len(r.output) for r in reqs)
 
 
-def run_family_serve(dev, arch: str, check) -> dict:
-    """Phase 4, serve_moe and serve_ssm: ``Server(arch)`` at its full
-    configuration on the card (random weights from seed 0) serving the
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+class CutServer(Server):
+    """``Server(arch)`` with its configuration cut to ``layers`` layers,
+    random weights from seed 0 (the cut is this script's: ``Server`` takes
+    no depth). The smoke model that ``Server.__init__`` builds first is a
+    few MB and is replaced at once."""
+
+    def __init__(self, arch: str, layers: int, device):
+        super().__init__(arch, smoke=True, device=device)
+        self.cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+        self.lm = build_lm(self.cfg, device=self.device)
+        self.params = self.lm.init(
+            torch.Generator(self.device).manual_seed(0))
+
+
+def param_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(params))
+
+
+def run_family_serve(dev, arch: str, check, layers=None) -> dict:
+    """Phase 4, serve_moe, serve_ssm and serve_hybrid: ``Server(arch)`` at
+    its full configuration on the card (cut to ``layers`` layers when
+    given, by ``CutServer``; random weights from seed 0) serving the
     yi-34b serve's mix, counters zeroed just before ``serve``. Flash
     attention must launch once per attention layer per batch, all on its
     tensor-core route, the scheduler's sort and gather in every embedding
     lookup, and no other kernel. Then ``check(server, first batch)``."""
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    server = Server(arch, device=dev)
+    server = Server(arch, device=dev) if layers is None else \
+        CutServer(arch, layers, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = server.cfg
@@ -2642,13 +2763,12 @@ def run_family_serve(dev, arch: str, check) -> dict:
         "bitonic_sort", "sorted_gather", "flash_attention")}
     assert not any(off_path.values()), f"off-path launches {off_path}"
     generated = check_outputs(stats, reqs, cfg)
-    param_bytes = sum(t.numel() * t.element_size()
-                      for t in leaves(server.params))
+    weight_bytes = param_bytes(server.params)
     # the check may replace the served weights by a float32 copy
     consistency = check(server, server.admit(reqs)[0])
     return dict(
         arch=cfg.name, layers=cfg.num_layers, params=cfg.param_count(),
-        param_bytes=param_bytes, init_s=init_s, batches=stats.batches,
+        param_bytes=weight_bytes, init_s=init_s, batches=stats.batches,
         batch_sizes=[len(b) for b in server.admit(reqs)],
         prefill_tokens=stats.prefill_tokens, generated_tokens=generated,
         decode_steps=stats.decode_steps, wall_s=stats.wall_s,
@@ -2657,7 +2777,232 @@ def run_family_serve(dev, arch: str, check) -> dict:
         decode_s_per_step=stats.decode_s / stats.decode_steps,
         tokens_per_s=(stats.prefill_tokens + generated) / stats.wall_s,
         launches=launches, flash_attention_routes=routes, peak_mem_gb=peak,
-        sample_output=reqs[0].output, **consistency)
+        sample_output=reqs[0].output, card=card(), **consistency)
+
+
+def run_encoder(dev) -> dict:
+    """Phase 4, encoder: hubert-xlarge uncut on the card (random weights
+    from seed 0), ``forward`` and ``loss`` on make_batch's ENCODER_BATCH x
+    ENCODER_FRAMES float32 frames, counters zeroed just before each. The
+    frames keep the residual stream float32 on bf16 weights, as in the
+    reference, so flash attention must launch once per layer a call, all
+    on its float32 (CUDA-core) route; the audio path makes no embedding
+    lookup, so no sort or gather, and no other kernel. Kernels on against
+    off: logits and loss within SERVE_F32_REL_BOUND, as every float32
+    gate (B6 on this route and shape is held at 3e-5 in ATTN_CASES)."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_arch(ENCODER_ARCH)
+    lm = build_lm(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        cfg, ShapeConfig("encoder", ENCODER_FRAMES, ENCODER_BATCH, "train"),
+        step=0, seed=SEED).items()}
+    out, launches = {}, {}
+    for call in ("forward", "loss"):
+        zero_launches()
+        t0 = time.perf_counter()
+        res = getattr(lm, call)(params, batch)
+        torch.cuda.synchronize()
+        out[f"{call}_s"] = time.perf_counter() - t0
+        launches[call] = {name: lib.launches for name, lib in LIBS.items()}
+        routes = dict(fa_kernel.LIB.entry_launches)
+        assert launches[call]["flash_attention"] == cfg.num_layers == \
+            routes["flash_attention_fwd"], f"{call}: B6 ran {routes} times"
+        off_path = {n: c for n, c in launches[call].items()
+                    if n != "flash_attention"}
+        assert not any(off_path.values()), f"{call}: launches {off_path}"
+        out[call] = res[0]
+    logits, loss = out.pop("forward"), out.pop("loss")
+    assert logits.dtype == torch.float32 and logits.shape == (
+        ENCODER_BATCH, ENCODER_FRAMES, cfg.padded_vocab), logits.shape
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(loss))
+    plain = dataclasses.replace(lm, cfg=dataclasses.replace(
+        cfg, use_kernels=False))
+    out["logits_rel_err"] = rel_err(logits, plain.forward(params, batch)[0])
+    plain_loss = plain.loss(params, batch)[0]
+    out["loss_rel_err"] = float((loss - plain_loss).abs() / plain_loss.abs())
+    assert out["logits_rel_err"] <= SERVE_F32_REL_BOUND, out
+    assert out["loss_rel_err"] <= SERVE_F32_REL_BOUND, out
+    return dict(
+        arch=cfg.name, layers=cfg.num_layers, params=cfg.param_count(),
+        param_bytes=param_bytes(params), init_s=init_s,
+        frames=ENCODER_BATCH * ENCODER_FRAMES, loss=float(loss),
+        frames_per_s=ENCODER_BATCH * ENCODER_FRAMES / out["forward_s"],
+        launches=launches["forward"], launches_by_call=launches,
+        flash_attention_routes=routes,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        card=card(), **out)
+
+
+def run_vlm(dev) -> dict:
+    """Phase 4, vlm: internvl2-76b cut to VLM_LAYERS layers on the card
+    (random weights from seed 0): ``LM.prefill`` of make_batch's VLM_BATCH
+    sequences of 256 patches and VLM_TEXT text tokens, then SERVE_NEW
+    greedy ``decode_step``s, counters zeroed just before. Flash attention
+    must launch once per layer in the prefill, all on its tensor-core
+    route; the sort and the gather once in each text lookup (the prefill's
+    and every step's), and no other kernel. Then ``check_vlm``."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = dataclasses.replace(get_arch(VLM_ARCH), num_layers=VLM_LAYERS)
+    lm = build_lm(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    seq = cfg.num_vision_tokens + VLM_TEXT
+    data = make_batch(cfg, ShapeConfig("vlm", seq, VLM_BATCH, "train"),
+                      step=0, seed=SEED)
+    batch = {k: torch.from_numpy(data[k]).to(dev)
+             for k in ("vision_embeds", "tokens")}
+    max_len = seq + SERVE_NEW + 8
+
+    zero_launches()
+    t0 = time.perf_counter()
+    logits, cache, cur = lm.prefill(params, batch, max_len)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    outs = [tok.tolist()]
+    prefill_s = time.perf_counter() - t0
+    first = logits
+    for _ in range(SERVE_NEW):
+        logits, cache = lm.decode_step(params, tok, cache, cur)
+        cur += 1
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        outs.append(tok.tolist())
+    decode_s = time.perf_counter() - t0 - prefill_s
+    launches = {name: lib.launches for name, lib in LIBS.items()}
+    routes = dict(fa_kernel.LIB.entry_launches)
+    del cache
+    assert launches["flash_attention"] == VLM_LAYERS == \
+        routes["flash_attention_fwd_tc"], f"B6 ran {routes} times"
+    assert launches["bitonic_sort"] == launches["sorted_gather"] == \
+        1 + SERVE_NEW, f"lookups: {launches}"
+    off_path = {n: c for n, c in launches.items() if n not in (
+        "bitonic_sort", "sorted_gather", "flash_attention")}
+    assert not any(off_path.values()), f"off-path launches {off_path}"
+    assert all(0 <= t < cfg.vocab_size for step in outs for t in step)
+    weight_bytes = param_bytes(params)
+    out = check_vlm(lm, params, batch, max_len, first)
+    generated = VLM_BATCH * SERVE_NEW
+    return dict(
+        arch=cfg.name, layers=cfg.num_layers, params=cfg.param_count(),
+        param_bytes=weight_bytes, init_s=init_s,
+        prefill_tokens=VLM_BATCH * seq, patches=VLM_BATCH *
+        cfg.num_vision_tokens, generated_tokens=generated,
+        prefill_s=prefill_s, decode_s_per_step=decode_s / SERVE_NEW,
+        prefill_tokens_per_s=VLM_BATCH * seq / prefill_s,
+        launches=launches, flash_attention_routes=routes,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        sample_output=[step[0] for step in outs], card=card(), **out)
+
+
+def check_vlm(lm, params, batch, max_len, served_logits) -> dict:
+    """The VLM prefill held to itself, through ``prefill``, ``decode_step``
+    and ``forward``. On the served bf16 weights: greedy tokens of the
+    prefill and of a decode step, kernels on against off, equal wherever
+    the plain path's top two logits are further apart than
+    SERVE_REL_BOUND (``check_greedy``), and B6's block within
+    SERVE_ATTN_ULPS at every layer (``prefill_layers``); the last-token
+    logits kernels on against off are printed (``*_bf16``) beside the
+    plain path against itself with its float32 sums in another order
+    (``reordered``, a control: bf16 rounds both alike, ROADMAP C19).
+    Gated on a float32 copy of the served weights cut to VLM_F32_LAYERS
+    layers (``float32_copy``, which replaces them), for
+    MOE_F32_BATCH sequences, within SERVE_F32_REL_BOUND: last-token
+    prefill logits kernels on against off, with greedy tokens, and a
+    decode step against the cache-free forward."""
+    cfg = lm.cfg
+    res, _ = plain_and_kernels(lm, params, batch, max_len)
+    greedy = {}
+    check_greedy(res, greedy)
+    reordered = dataclasses.replace(lm, cfg=dataclasses.replace(
+        cfg, use_kernels=False, attn_kv_block=cfg.attn_kv_block // 4))
+    out = dict(prefill_rel_err_bf16=rel_err(res["kernels"][0],
+                                            res["plain"][0]),
+               prefill_rel_err_reordered_bf16=rel_err(
+                   reordered.prefill(params, batch, max_len)[0],
+                   res["plain"][0]),
+               prefill_repeats_its_bits=same_bits(res["kernels"][0],
+                                                  served_logits),
+               **{f"{k}_bf16": v for k, v in greedy.items()})
+    walk = prefill_layers(lm, params, batch, res["kernels"][0])
+    say(phase="vlm_layers", **out, **walk)
+    assert walk["attn_b6_worst_ulps"] <= SERVE_ATTN_ULPS, \
+        f"B6's attention block {walk['attn_b6_worst_ulps']} bf16 ulps " \
+        f"from the plain one at layer {walk['attn_b6_worst_layer']}"
+    out.update({k: walk[k] for k in ("attn_b6_worst_layer",
+                                     "attn_b6_worst_ulps")})
+    del res
+    torch.cuda.empty_cache()
+
+    lm32 = float32_copy(lm, params, VLM_F32_LAYERS)
+    torch.cuda.empty_cache()
+    out.update(float32_layers=lm32.cfg.num_layers,
+               float32_param_bytes=param_bytes(params))
+    small = {k: v[:MOE_F32_BATCH] for k, v in batch.items()}
+    res, tok = plain_and_kernels(lm32, params, small, max_len)
+    out["prefill_rel_err"] = rel_err(res["kernels"][0], res["plain"][0])
+    check_greedy(res, out)
+    out["decode_vs_forward_rel_err"] = decode_vs_forward(
+        lm32, params, small, tok, max_len)
+    say(phase="vlm_float32", **out)
+    assert out["prefill_rel_err"] <= SERVE_F32_REL_BOUND, out
+    assert out["decode_vs_forward_rel_err"] <= SERVE_F32_REL_BOUND, out
+    return out
+
+
+def run_capture(dev) -> dict:
+    """Phase 4, capture: ``capture_model_trace`` on the card for the six
+    family representatives at their smoke configs, on the port's seeded
+    params (``torch.Generator`` of the card, seed 0), counters zeroed
+    before the six. The same capture on CPU copies of those params: every
+    value-independent request equal in all six columns, and as many
+    value-dependent ones (decode tokens and MoE routes, which the two
+    devices' arithmetic may pick apart; their differing rows printed).
+    The embedding-gradient update runs B3 here, the lookups B1 and B2,
+    attention B6; each must have run."""
+    zero_launches()
+    out = {}
+    cols = ("pe_id", "row_id", "rw", "nbytes", "op", "arrival_cycle")
+    t0 = time.perf_counter()
+    caps = {}
+    for fam, arch in sorted(model_traces.FAMILY_REPRESENTATIVE.items()):
+        cfg = get_arch(arch, smoke=True)
+        params = build_lm(cfg, device=dev).init(
+            torch.Generator(dev).manual_seed(SEED))
+        caps[fam] = (arch, model_traces.capture_model_trace(
+            arch, params=params, device=dev), map_tree(
+                lambda t: t.cpu(), params))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {name: lib.launches for name, lib in LIBS.items()}
+    for name in ("bitonic_sort", "sorted_gather", "sorted_scatter",
+                 "flash_attention"):
+        assert launches[name] > 0, f"{name} did not run in the capture"
+    for fam, (arch, got, cpu_params) in caps.items():
+        want = model_traces.capture_model_trace(arch, params=cpu_params,
+                                                device="cpu")
+        assert got.to_dict()["regions"] == want.to_dict()["regions"], fam
+        assert got.op_labels == want.op_labels and len(got) == len(want)
+        g, w = got.rows(), want.rows()
+        vd = model_traces.value_dependent(got)
+        assert np.array_equal(vd, model_traces.value_dependent(want)), fam
+        for c in cols:
+            assert np.array_equal(g[c][~vd], w[c][~vd]), (fam, c)
+        diff = np.nonzero((g["row_id"] != w["row_id"])
+                          | (g["pe_id"] != w["pe_id"]))[0]
+        labels = np.asarray(got.op_labels)
+        out[fam] = dict(
+            arch=arch, requests=len(got), op_counts=got.op_counts(),
+            value_dependent=int(vd.sum()), differing=int(diff.size),
+            differing_ops=dict(collections.Counter(
+                labels[g["op"][diff]].tolist())),
+            differing_rows=[(int(i), int(w["row_id"][i]), int(g["row_id"][i]),
+                             int(w["pe_id"][i]), int(g["pe_id"][i]))
+                            for i in diff[:8]])
+    return dict(families=out, card_s=card_s, launches=launches, card=card())
 
 
 def tuned_geometry(cfg) -> dict:
@@ -3059,10 +3404,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     say(phase="device", kind=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
@@ -3175,6 +3517,21 @@ def run(dev) -> None:
                               ("serve_ssm", SERVE_SSM_ARCH, check_ssm_serve)):
         v = run_family_serve(dev, arch, check)
         say(phase="slice", path=path, **v)
+        launches[path] = v["launches"]
+        del v
+        gc.collect()
+        torch.cuda.empty_cache()
+    for path, run_path in (
+            ("serve_hybrid", lambda: run_family_serve(
+                dev, SERVE_HYBRID_ARCH, lambda server, batch:
+                check_moe_serve(server, batch, SERVE_HYBRID_F32_LAYERS),
+                layers=SERVE_HYBRID_LAYERS)),
+            ("encoder", lambda: run_encoder(dev)),
+            ("vlm", lambda: run_vlm(dev)),
+            ("capture", lambda: run_capture(dev))):
+        t0 = time.perf_counter()
+        v = run_path()
+        say(phase="slice", path=path, seconds=time.perf_counter() - t0, **v)
         launches[path] = v["launches"]
         del v
         gc.collect()

@@ -35,9 +35,10 @@ within a decode step.
 
 Counterpart of the reference's ``repro.core.capture``, where the tracer
 test is a JAX one. ``MemoryController.capture`` records the controller's
-own calls, and the MoE dispatch and SSM state-update hooks
-(``models.blocks``) record into an active capture; the embedding, KV and
-frontend hooks are ROADMAP A7.6.
+own calls; the model's hooks are the embedding gather and scatter and the
+KV append (``models.layers``), the MoE dispatch and SSM state update
+(``models.blocks``) and the audio/vision frontends (``models.lm``), and
+``data.model_traces.capture_model_trace`` drives them all.
 """
 
 from __future__ import annotations

@@ -1,2 +1,3 @@
-"""Data substrate of the port: the arrival generators and the pinned
-model traces (counterpart of the reference's ``repro.data``)."""
+"""Data substrate of the port: synthetic token batches, the arrival
+generators, and the model trace zoo (capture and the pinned traces);
+counterpart of the reference's ``repro.data``."""

@@ -1,14 +1,99 @@
-"""Open-loop arrival processes for the serving workloads (ARCHITECTURE §9).
+"""Deterministic synthetic data: token batches and open-loop arrivals.
 
-Counterpart of the numpy arrival generators of the reference's
-``repro.data.synthetic``, copied expression for expression: the pinned
-serving goldens replay their draws bit for bit. The token half of that
-module (``make_batch``, ``SyntheticDataset``) is ROADMAP A8.
+Counterpart of the reference's ``repro.data.synthetic``, copied
+expression for expression on numpy alone: every batch is a pure function
+of ``(seed, step)`` (no iterator state, so a restarted job regenerates
+exactly the batch it stopped on), drawn from the same ``SeedSequence``
+triples in the same order, and the pinned serving goldens replay the
+arrival draws bit for bit. Token streams are Zipf-distributed; audio and
+vision frontends get Gaussian frame / patch embeddings (the frontends
+themselves are stubs). The reference's ``batch_specs`` builds sharding
+specs and comes with the mesh (ROADMAP A9).
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Dict, Iterator
+
 import numpy as np
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+
+
+def _rng(seed: int, step: int, role: int) -> np.random.Generator:
+    # SeedSequence gives independent streams per (seed, step, role)
+    return np.random.default_rng(np.random.SeedSequence((seed, step, role)))
+
+
+def zipf_tokens(rng: np.random.Generator, shape, vocab: int,
+                alpha: float = 1.1) -> np.ndarray:
+    """Zipf-like token draw bounded to [0, vocab)."""
+    z = rng.zipf(alpha, size=shape).astype(np.int64)
+    return ((z - 1) % vocab).astype(np.int32)
+
+
+def make_batch(cfg: ArchConfig, shape: ShapeConfig, *, step: int,
+               seed: int = 0, batch_override: int | None = None
+               ) -> Dict[str, np.ndarray]:
+    """Materialize the global batch for ``step`` (host-RAM numpy):
+    ``frames`` (float32) and ``labels`` for audio; ``vision_embeds``
+    (float32), ``tokens`` and ``labels`` for vision_text, whose text
+    takes ``seq_len - num_vision_tokens`` positions; ``tokens`` and
+    ``labels`` (the next token) otherwise."""
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+    out: Dict[str, np.ndarray] = {}
+    if cfg.modality == "audio":
+        out["frames"] = _rng(seed, step, 0).standard_normal(
+            (B, S, cfg.frontend_dim), dtype=np.float32)
+        out["labels"] = zipf_tokens(_rng(seed, step, 1), (B, S),
+                                    cfg.vocab_size)
+    elif cfg.modality == "vision_text":
+        st = S - cfg.num_vision_tokens
+        out["vision_embeds"] = _rng(seed, step, 0).standard_normal(
+            (B, cfg.num_vision_tokens, cfg.frontend_dim), dtype=np.float32)
+        toks = zipf_tokens(_rng(seed, step, 1), (B, st + 1), cfg.vocab_size)
+        out["tokens"] = toks[:, :-1]
+        out["labels"] = toks[:, 1:]
+    else:
+        toks = zipf_tokens(_rng(seed, step, 1), (B, S + 1), cfg.vocab_size)
+        out["tokens"] = toks[:, :-1]
+        out["labels"] = toks[:, 1:]
+    return out
+
+
+@dataclasses.dataclass
+class SyntheticDataset:
+    """Step-indexed iterator facade with host sharding.
+
+    In a multi-host launch each host materializes only its slice of the
+    global batch (``host_index/host_count``); single-host runs see the full
+    batch. ``state_dict`` is just the step counter — resume is exact.
+    """
+
+    cfg: ArchConfig
+    shape: ShapeConfig
+    seed: int = 0
+    host_index: int = 0
+    host_count: int = 1
+    batch_override: int | None = None
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        full = make_batch(self.cfg, self.shape, step=step, seed=self.seed,
+                          batch_override=self.batch_override)
+        if self.host_count == 1:
+            return full
+        B = next(iter(full.values())).shape[0]
+        per = B // self.host_count
+        lo = self.host_index * per
+        return {k: v[lo:lo + per] for k, v in full.items()}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 # ---------------------------------------------------------------------------

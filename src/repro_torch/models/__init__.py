@@ -1,5 +1,5 @@
-"""Model zoo: the LM assembly (the dense, MoE and SSM families with text
-modality so far).
+"""Model zoo: the LM assembly for every family of the registry (dense,
+MoE, SSM, hybrid, audio encoder, VLM).
 
 Counterpart of ``repro.models``.
 """

@@ -1,8 +1,11 @@
 """Block forwards (train, prefill and decode paths): attention, the dense
 MLP, the MoE FFN and the Mamba-2 (SSD) mixer.
 
-Counterpart of ``repro.models.blocks`` for the dense, MoE (token-choice
-"tp" strategy) and SSM families. The MoE dispatch is a literal instance
+Counterpart of ``repro.models.blocks`` (the MoE blocks in the
+token-choice "tp" strategy); the hybrid family interleaves these blocks.
+Full-sequence attention and the MLP multiply through ``layers.mm``, which
+promotes a float32 x bf16 product as ``jnp`` does (the audio frontend's
+float32 stream). The MoE dispatch is a literal instance
 of the paper's memory scheduler: token→expert assignments are the request
 stream, the expert id is the "DRAM row", capacity buffers are the DMA
 staging buffers, and the dispatch reorders requests so all traffic to one
@@ -71,9 +74,9 @@ def attn_forward(p, x, cfg: ArchConfig, positions: torch.Tensor):
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xn = layers.rms_norm(x, p["ln"])
-    q = (xn @ p["wq"]).reshape(B, S, h, hd)
-    k = (xn @ p["wk"]).reshape(B, S, kv, hd)
-    v = (xn @ p["wv"]).reshape(B, S, kv, hd)
+    q = layers.mm(xn, p["wq"]).reshape(B, S, h, hd)
+    k = layers.mm(xn, p["wk"]).reshape(B, S, kv, hd)
+    v = layers.mm(xn, p["wv"]).reshape(B, S, kv, hd)
     q = layers.rope(q, positions, cfg.rope_theta)
     k = layers.rope(k, positions, cfg.rope_theta)
     out = layers.flash_attention(q, k, v, causal=cfg.causal,
@@ -81,7 +84,8 @@ def attn_forward(p, x, cfg: ArchConfig, positions: torch.Tensor):
                                  q_block=cfg.attn_q_block,
                                  kv_block=cfg.attn_kv_block,
                                  use_kernels=cfg.use_kernels)
-    return out.reshape(B, S, h * hd) @ p["wo"], AttnCache(k=k, v=v)
+    out = layers.mm(out.reshape(B, S, h * hd), p["wo"])
+    return out, AttnCache(k=k, v=v)
 
 
 def attn_prefill_cache(kv: AttnCache, cfg: ArchConfig, seq_len: int,

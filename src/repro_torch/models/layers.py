@@ -18,17 +18,21 @@ directions: lookups via ``mc_embed`` (token ids stable-sorted per sequence
 by the bitonic kernel B1 before the row gather B2) and table updates via
 ``mc_scatter`` (the embedding-gradient WRITE stream, batch-sorted and
 coalesced per row by B3); ``mc_kv_append`` is the decode-step KV page write,
-an in-place slot copy. The reference's trace-capture hooks
-(``_capture_embed``, ``capture_mod``) come with ``core/capture.py``.
+an in-place slot copy. Each of the three reports its request batch into an
+active ``core.capture.TraceCapture`` (the model trace zoo,
+``data/model_traces.py``); with none active a hook returns at once, and
+only a hook that records copies ids from the card to the host.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import capture as capture_mod
 from repro_torch.core import scheduler
 from repro_torch.core.config import MemoryControllerConfig
 from repro_torch.core.controller import MemoryController
@@ -59,9 +63,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with the reference's dtype promotion: ``jnp`` promotes a
+    float32 x bf16 product to float32 (the audio frontend's float32
+    frames keep hubert's residual stream float32), where ``torch.matmul``
+    of mixed dtypes raises. Same-dtype operands multiply as they are."""
+    if a.dtype != b.dtype:
+        t = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(t), b.to(t)
+    return a @ b
+
+
 def swiglu(x, w_gate, w_up, w_down):
-    h = F.silu(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    h = F.silu(mm(x, w_gate)) * mm(x, w_up)
+    return mm(h, w_down)
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +129,31 @@ def decode_attention(
 # Controller-routed embedding
 # ---------------------------------------------------------------------------
 
+def _embed_region(table: torch.Tensor) -> tuple:
+    """(region_name, n_rows, row_bytes) of an embedding table — shared by
+    ``mc_embed`` (READ) and ``mc_scatter`` (WRITE) so both directions of
+    embedding traffic land on the same captured rows."""
+    n_rows = int(table.shape[0])
+    row_bytes = int(table.shape[-1]) * int(table.element_size())
+    return f"embed:{n_rows}x{row_bytes}", n_rows, row_bytes
+
+
+def _capture_embed(op: str, table, tokens, rw: int) -> None:
+    cap = capture_mod.active_capture()
+    if cap is None:
+        return
+    name, n_rows, row_bytes = _embed_region(table)
+    shape = tuple(tokens.shape)
+    if len(shape) >= 2:
+        # one port per sequence (leading dims flattened): the multi-PE
+        # front end sees each sequence's token stream on its own port
+        lead = int(np.prod(shape[:-1]))
+        pe = np.repeat(np.arange(lead, dtype=np.int64), shape[-1])
+    else:
+        pe = 0          # single-sequence / decode stream — one port
+    cap.record(op, name, n_rows, row_bytes, tokens, rw=rw, pe_id=pe)
+
+
 def mc_embed(table: torch.Tensor, tokens: torch.Tensor,
              mc: MemoryControllerConfig, *,
              use_kernels: bool = True) -> torch.Tensor:
@@ -127,6 +167,7 @@ def mc_embed(table: torch.Tensor, tokens: torch.Tensor,
     (B1) and the row gather the sorted-gather kernel (B2), their plain
     versions for CPU tensors. Value-identical to ``table[tokens]``.
     """
+    _capture_embed("embed_gather", table, tokens, rw=0)
     d = table.shape[-1]
     if not mc.scheduler.enabled:
         return table.index_select(0, tokens.reshape(-1)).reshape(
@@ -156,6 +197,7 @@ def mc_scatter(table: torch.Tensor, tokens: torch.Tensor,
     ``table.at[tokens].add(values)`` / last-writer-wins ``set``; returns a
     new table.
     """
+    _capture_embed("embed_scatter", table, tokens, rw=1)
     return MemoryController(mc, use_kernels=use_kernels,
                             device=table.device).scatter(
         table, tokens, values, mode=mode)
@@ -171,8 +213,18 @@ def mc_kv_append(buf: torch.Tensor, new: torch.Tensor, slot: int,
     ``dynamic_update_slice`` returns a new cache; copying a 2 GB cache per
     decode step is what the in-place write avoids). A slot range past the
     buffer raises, where the reference would clamp the slot. ``mc`` marks
-    the request class for the capture hook, which comes with
-    ``core/capture.py``; it never affects stored values.
+    the request class, which the capture hook reports as ``kv_append``
+    bulk-write records (``kv_append_dma`` when the config's DMA engine
+    owns the stream); it never affects stored values.
     """
+    cap = capture_mod.active_capture()
+    if cap is not None:
+        pages = int(buf.shape[axis])
+        n_new = int(new.shape[axis])
+        page_bytes = (new.numel() // max(1, n_new)
+                      * int(new.element_size()))
+        op = "kv_append_dma" if mc.dma.enabled else "kv_append"
+        cap.record_slice(op, f"kv:{pages}x{page_bytes}", pages, page_bytes,
+                         slot, n_new, rw=1)
     buf.narrow(axis, slot, new.shape[axis]).copy_(new)
     return buf

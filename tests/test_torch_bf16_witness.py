@@ -40,7 +40,8 @@ F32_TOL = 1e-4
 # chunk with a ragged tail; MoE prompts are short, because at capacity = the
 # tokens every expert multiplies every token.
 FULL_WIDTH = [("mamba2_2p7b", 4, 2, 300), ("qwen2_moe_a2p7b", 2, 2, 64)]
-SMOKE = [("mamba2_2p7b", 2, 40), ("qwen2_moe_a2p7b", 2, 24)]
+SMOKE = [("mamba2_2p7b", 2, 40), ("qwen2_moe_a2p7b", 2, 24),
+         ("jamba_v0p1_52b", 2, 24)]
 
 
 def _np(x):

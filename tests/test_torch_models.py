@@ -1,7 +1,9 @@
 """Port parity for the model stack: configs, parameter declarations, the
 parameter carry, and the LM's ``forward``, ``loss``, ``prefill``,
 ``decode_step`` and ``init_cache`` (``repro_torch.models``, on the CPU)
-for the dense, MoE and SSM families against the JAX package's, with the
+for the dense, MoE and SSM families against the JAX package's (the
+hybrid, audio and vision families in tests/test_torch_hybrid.py and
+tests/test_torch_frontends.py), with the
 reference's params converted leaf for leaf. MoE configs run at capacity
 factor 8.0, as the reference's consistency tests do (``_f32`` in
 tests/models/test_consistency.py), so that a float32 difference cannot
@@ -354,8 +356,38 @@ def test_embedding_grad_update_matches_reference():
 
 @pytest.mark.parametrize("arch", OTHER)
 def test_other_families_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="A7"):
-        tbuild_lm(tget_arch(arch, smoke=True), device="cpu")
+    """The hybrid, audio and vision architectures build like the others
+    (their parity is in tests/test_torch_hybrid.py and
+    tests/test_torch_frontends.py); what still raises for them is what
+    raises for every family: a device mesh and expert parallelism."""
+    cfg = tget_arch(arch, smoke=True)
+    assert tbuild_lm(cfg, device="cpu").cfg is cfg
+    with pytest.raises(NotImplementedError, match="A9"):
+        tbuild_lm(cfg, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        tbuild_lm(cfg, moe_strategy="ep", device="cpu")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_build_lm_takes_every_registry_architecture(arch):
+    """Every registry id builds, and its smoke config's forward and loss
+    run on ``make_batch``'s batch: logits of (B, S, padded vocab) in the
+    reference's dtype for that input (float32 for the audio frames),
+    finite, and a finite loss."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import make_batch
+    cfg = tget_arch(arch, smoke=True)
+    lm = tbuild_lm(cfg, device="cpu")
+    params = lm.init(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(
+        cfg, ShapeConfig("s", 16, 2, "train"), step=0).items()}
+    logits, aux = lm.forward(params, batch)
+    assert logits.shape == (2, 16, cfg.padded_vocab)
+    assert logits.dtype == (torch.float32 if cfg.modality == "audio"
+                            else torch.bfloat16)
+    assert bool(torch.isfinite(logits.float()).all())
+    loss, metrics = lm.loss(params, batch)
+    assert bool(torch.isfinite(loss)) and set(aux) <= set(metrics)
 
 
 @pytest.mark.parametrize("what", ["mesh", "ep"])

@@ -53,19 +53,25 @@ def _env(**extra):
 
 def test_no_module_imports_jax_or_the_reference_package():
     """Import every module of the port (and chip_smoke.py) in a fresh
-    interpreter: neither ``jax`` nor any ``repro`` module is loaded."""
+    interpreter, and run a trace capture of the hybrid and the VLM on the
+    CPU (its imports are lazy): neither ``jax`` nor any ``repro`` module
+    is loaded."""
     mods = _modules()
     assert {"repro_torch.kernels._build", "repro_torch.configs.yi_34b",
             "repro_torch.models.lm", "repro_torch.launch.serve",
             "repro_torch.kernels.flash_attention.kernel",
             "repro_torch.core.pipeline", "repro_torch.core.channels",
-            "repro_torch.data.model_traces"} <= set(mods)
+            "repro_torch.data.model_traces",
+            "repro_torch.data.synthetic"} <= set(mods)
     assert len(mods) > 15
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
+        "from repro_torch.data.model_traces import capture_model_trace\n"
+        "for a in ('jamba_v0p1_52b', 'internvl2_76b'):\n"
+        "    capture_model_trace(a, seq=16, decode_steps=1, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m == 'repro'\n"
         "             or m.startswith(('jax.', 'repro.')))\n"
         "print(bad)\n")
@@ -229,7 +235,8 @@ def test_model_entry_points_run_on_the_gpu_unless_asked():
     from repro_torch.launch.serve import Server
     from repro_torch.models import LM, build_lm
     from repro_torch.models.params import init_params
-    for fn in (Server, build_lm, init_params):
+    from repro_torch.data.model_traces import capture_model_trace
+    for fn in (Server, build_lm, init_params, capture_model_trace):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert LM.__dataclass_fields__["device"].default == "cuda"
 

@@ -96,13 +96,16 @@ def test_admit_and_kv_trace_match_reference(gap, batch):
 @pytest.mark.parametrize("arch,ragged", [("yi-34b", False),
                                          ("h2o-danube-1.8b", True),
                                          ("qwen2-moe-a2.7b", False),
-                                         ("mamba2-2.7b", True)])
+                                         ("mamba2-2.7b", True),
+                                         ("jamba-v0.1-52b", True)])
 def test_serve_gives_the_reference_greedy_tokens(arch, ragged):
     """12 requests, arriving every 3 cycles (the reference CLI's mix),
     batches of 8 and 4; ragged prompts are left-padded, and h2o-danube's
     8-token window makes its cache a ring. qwen2-moe's prefill drops
     assignments past its capacity (factor 1.25) as the reference's does;
-    mamba2 carries its conv taps and SSD state from prefill to decode."""
+    mamba2 carries its conv taps and SSD state from prefill to decode;
+    jamba's cache holds one entry per period position (attention at 4,
+    Mamba at the others)."""
     jsrv, tsrv = _servers(arch)
     reqs = _requests(prompt_len=10, new_tokens=5, ragged=ragged)
     jr = [jserve.Request(**r) for r in reqs]
