@@ -212,6 +212,26 @@ Phases (a failing phase raises and the script exits non-zero):
      gather, B3's ``add`` (the embedding-gradient update) and flash
      attention must each have run.
 
+8. train: ``Trainer`` on h2o-danube-1.8b uncut (24 layers, 1.83e9
+   params, bf16 weights, float32 AdamW moments, each layer checkpointed),
+   random weights from seed 0, 4 x 2048 tokens a step. On step 0's batch
+   the gradient of ``LM.loss`` through the kernels (``EmbedLookup``'s
+   backward B1 and B3 ``add``, ``FlashAttention``'s the plain version
+   under autograd): every leaf finite; B1, B2, B3 and B6 launched, by
+   their counters and by their kernels' names in ``torch.profiler``
+   traces; the lookup's bf16 rows bit-equal kernels on and off, and
+   the table's bf16 gradient bit-equal to B3's float32 sums of
+   the gradient that reached the lookup, rounded once (those sums within
+   float32 summation's bound of exact float64 ones); kernels on against
+   off printed in bf16, and on a float32 copy of the weights gated per
+   leaf at TRAIN_F32_REL_BOUND. B6 at this shape in bf16 is held in
+   phase 3's ATTN_CASES. Then five AdamW steps through ``Trainer.run``
+   with an async checkpoint after the third, counters zeroed just
+   before: each of the four kernels launched, the loss falls; a new
+   ``Trainer`` resumes from the checkpoint and repeats the last two
+   losses. Prints the step seconds, tokens a second,
+   peak memory and the card.
+
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches on its own path, and ``launches_by_path`` on every path); the
 last line is ``{"ok": true, "device": {...}}``.
@@ -226,6 +246,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -273,10 +294,14 @@ from repro_torch.kernels.dma_copy import ops as dc_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.sorted_gather import kernel as sg_kernel  # noqa: E402
 from repro_torch.kernels.sorted_scatter import kernel as ss_kernel  # noqa: E402
+from repro_torch.kernels.sorted_scatter import ops as ss_ops  # noqa: E402
 from repro_torch.kernels.sorted_scatter.coalesce import coalesce_add_runs  # noqa: E402
 from repro_torch.launch.serve import Request, Server, ServeStats  # noqa: E402
+from repro_torch.launch.train import (Trainer, TrainerConfig,  # noqa: E402
+                                      loss_and_grads)
 from repro_torch.models import blocks, build_lm, layers  # noqa: E402
 from repro_torch.models.params import leaves, map_tree  # noqa: E402
+from repro_torch.optim import OptimizerConfig  # noqa: E402
 
 LIBS = {"bitonic_sort": bs_kernel.LIB, "sorted_gather": sg_kernel.LIB,
         "sorted_scatter": ss_kernel.LIB, "dma_copy": dc_kernel.LIB,
@@ -333,6 +358,8 @@ ATTN_SHAPE = (8, SERVE_PROMPT, 56, 8, 128)
 ATTN_CASES = [
     ("serve prefill", ATTN_SHAPE, torch.bfloat16, True, None),
     ("h2o-danube window 4096 at S 8192", (1, 8192, 32, 8, 80),
+     torch.bfloat16, True, 4096),
+    ("h2o-danube train batch 4 x 2048, window 4096", (4, 2048, 32, 8, 80),
      torch.bfloat16, True, 4096),
     ("window 20 < one tile", (2, 300, 8, 2, 64), torch.bfloat16, True, 20),
     ("hubert bidirectional hd 80", (2, 512, 16, 16, 80), torch.bfloat16,
@@ -403,6 +430,37 @@ VLM_ARCH, VLM_LAYERS, VLM_BATCH, VLM_TEXT = "internvl2-76b", 24, 4, 1024
 # Its float32 gates on a copy of the served weights cut to 8 layers
 # (35.8 GB in float32).
 VLM_F32_LAYERS = 8
+# The train path: h2o-danube-1.8b uncut (24 layers, 1.83e9 params; bf16
+# weights and gradients, float32 moments: 22 GB before activations),
+# each layer checkpointed (cfg.remat), on make_batch's 4 x 2048 Zipf
+# tokens a step. TRAIN_STEPS AdamW steps with a checkpoint after step
+# TRAIN_CKPT, then a resume from it; warmup over 2 steps to a peak of
+# 3e-5. Adam's first step moves every weight by the learning rate, and
+# from this random init a peak of 1e-4 or more throws step 1's loss up
+# (by 2 to 8 nats on the card) before it falls.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "h2o-danube-1.8b", 4, 2048
+TRAIN_STEPS, TRAIN_CKPT = 5, 3
+TRAIN_OPT = OptimizerConfig(peak_lr=3e-5, warmup_steps=2, total_steps=100)
+# The gradient of every leaf kernels on against off, in float32: the bound
+# of the CPU gradient tests against jax.grad (tests/test_torch_grads.py),
+# relative to the leaf's largest magnitude.
+TRAIN_F32_REL_BOUND = 1e-4
+# Each kernel of the train path by a fragment of its CUDA kernels' names
+# in a profiler trace (B3's add kernels; PyTorch's own kernels, whose
+# names carry a namespace, are left out). After the earlier phases the
+# profiler loses the first events of a trace on the card: of a whole
+# gradient's trace, even 256 markers and then the forward's sort and
+# gather; of the forward's alone, eight markers and its sort every time
+# and at times its gather, and 256 markers but nothing after them. So
+# the forward and the backward are traced apart, each after
+# TRAIN_TRACE_MARKERS markers that take that loss (``grad_trace_markers``
+# prints how many each trace kept), and the names are gathered over up
+# to TRAIN_TRACES gradients, in case a trace loses more.
+TRAIN_TRACE_MARKERS = 1024
+TRAIN_TRACES = 3
+TRAIN_KERNEL_NAMES = {"bitonic_sort": "bitonic_", "sorted_gather":
+                      "gather_rows_", "sorted_scatter": "scatter_add_",
+                      "flash_attention": "flash_fwd"}
 # The autotune phase: benchmarks/perf_model_traces.py's two grids (that
 # module imports the reference package, so they are copied here). The full
 # grid on the six pinned family traces reproduces BENCH_model_traces.json's
@@ -3399,6 +3457,268 @@ def timings_cache(dev, c, full: bool = True) -> dict:
     return {f"probe {n} beats, {sets} sets x {ways} ways": row}
 
 
+def leaf_names(tree, prefix: str = "") -> list:
+    """The paths of a nested dict's leaves, in ``leaves``' order."""
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [n for k in sorted(tree)
+            for n in leaf_names(tree[k], f"{prefix}/{k}" if prefix else k)]
+
+
+def grad_rel_errs(got, want) -> list:
+    """Per leaf, max |got - want| over the largest |want| (0 where both
+    are zero, inf where only ``got`` is not)."""
+    errs = []
+    for g, w in zip(leaves(got), leaves(want)):
+        top = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        errs.append(err / top if top else (0.0 if err == 0 else math.inf))
+    return errs
+
+
+def traced_kernels(fn) -> tuple:
+    """(fn's result, the names of the kernels in one ``torch.profiler``
+    trace of it, without arguments or template lists, and how many of the
+    TRAIN_TRACE_MARKERS markers launched before it the trace kept)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRAIN_TRACE_MARKERS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        res = fn()
+        torch.cuda.synchronize()
+    names = [e.name.split("(")[0].removeprefix("void ").split("<")[0]
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return res, names, sum(TRACE_MARKER in n for n in names)
+
+
+def grad_node(root, name: str):
+    """The node named ``name`` in the autograd graph that ends at
+    ``root`` (None where there is none)."""
+    seen, todo = set(), [root]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if node.name() == name:
+            return node
+        todo.extend(n for n, _ in node.next_functions)
+    return None
+
+
+def check_train_embed(table, tokens, up, got, mc) -> dict:
+    """B2 and B3 ``add`` at the train path's own shape and dtype: the
+    lookup ``mc_embed`` with kernels on bit-equal to kernels off (B2's
+    rows are copies). ``got`` is the
+    bf16 table gradient of the path's kernels-on gradient and ``up`` the
+    bf16 gradient that reached ``mc_embed``'s output there. ``got`` must
+    be, bit for bit, B3's float32 sums of the same addends (bf16 rows into
+    a float32 zero table, the same sort and plan) rounded once, and the
+    same bits again from another backward of ``mc_embed``; those float32
+    sums within float32 summation's bound of the exact sums (float64
+    ``index_add_``): gamma(n - 1) times the sum of |x| for a row of n
+    addends, gamma(m) = m u / (1 - m u), u = 2^-24. Prints each bf16
+    route's largest error against the exact sums over their largest
+    magnitude: the kernel route's, and the kernels-off route's (autograd
+    through ``mc_embed``'s plain gathers, whose backward adds with bf16
+    ``index_add_``) on the same ``up``."""
+    flat = tokens.reshape(-1).long()
+    rows = up.reshape(flat.shape[0], -1)
+    sums32 = ss_ops.sorted_scatter(
+        torch.zeros(got.shape, dtype=torch.float32, device=got.device),
+        tokens, up, mode="add", use_bitonic=True)
+    assert same_bits(got, sums32.to(got.dtype)), \
+        "embedding gradient: not B3's float32 sums rounded once"
+    rows_out, grads = {}, {}
+    for on in (True, False):
+        t = table.detach().requires_grad_()
+        rows_out[on] = layers.mc_embed(t, tokens, mc, use_kernels=on)
+        (grads[on],) = torch.autograd.grad(rows_out[on], [t], up)
+    assert same_bits(rows_out[True], rows_out[False]), \
+        "embedding lookup: kernel rows differ from index_select's"
+    assert same_bits(got, grads[True]), \
+        "embedding gradient: another backward, other bits"
+    exact = torch.zeros(got.shape, dtype=torch.float64,
+                        device=got.device).index_add_(0, flat, rows.double())
+    mass = torch.zeros_like(exact).index_add_(0, flat, rows.double().abs())
+    m = (torch.bincount(flat, minlength=got.shape[0]).double() - 1).clamp(
+        min=0)[:, None] * 2.0 ** -24
+    err32 = (sums32.double() - exact).abs()
+    over = err32 - m / (1 - m) * mass * (1 + 2.0 ** -28)
+    assert float(over.max()) <= 0, \
+        f"embedding gradient: float32 sums {float(over.max())} past bound"
+    top = float(exact.abs().max())
+    return dict(
+        embed_grad_max_repeats=int(m.max() / 2.0 ** -24) + 1,
+        embed_grad_f32_rel_err=float(err32.max()) / top,
+        embed_grad_rel_err=float((got.double() - exact).abs().max()) / top,
+        embed_grad_off_rel_err=float(
+            (grads[False].double() - exact).abs().max()) / top)
+
+
+def train_grads(dev, trainer, params, batch) -> dict:
+    """C22 on the card. The gradient of ``LM.loss`` with kernels on, its
+    counters zeroed just before, the forward and the backward
+    (``torch.autograd.grad`` of every leaf, as ``loss_and_grads`` takes
+    it; a leaf the loss does not reach raises) each under its own
+    ``torch.profiler`` trace: every leaf's gradient finite, and B1, B2, B3
+    (the embedding's backward) and B6 each launched, by their counters
+    and by their kernels' names in the traces (retaken, up to
+    TRAIN_TRACES times, until each has shown in one). The table's
+    gradient is
+    held to ``check_train_embed`` on the gradient that reached the
+    lookup (B2 and B3 on the path's bf16 rows). Then ``loss_and_grads`` with
+    kernels off, printed; then on a float32 copy of the weights kernels
+    on against off, every leaf within TRAIN_F32_REL_BOUND."""
+    lm = trainer.lm
+    plain = dataclasses.replace(lm, cfg=dataclasses.replace(
+        lm.cfg, use_kernels=False))
+    out = {}
+    seen = {k: set() for k in TRAIN_KERNEL_NAMES}
+    markers = []
+    for tries in range(1, TRAIN_TRACES + 1):
+        zero_launches()
+        flat = [p.detach().requires_grad_() for p in leaves(params)]
+        it = iter(flat)
+        tree = map_tree(lambda _: next(it), params)
+        (loss, _), fwd, fwd_markers = traced_kernels(
+            lambda: lm.loss(tree, batch))
+        lookup = grad_node(loss.grad_fn, "EmbedLookupBackward")
+        assert lookup is not None, "no EmbedLookup in the loss's graph"
+        reached = []
+        lookup.register_prehook(
+            lambda g: reached.append(g[0].detach().clone()))
+        grads, bwd, bwd_markers = traced_kernels(
+            lambda: torch.autograd.grad(loss, flat))
+        launches = {name: lib.launches for name, lib in LIBS.items()}
+        markers.append((fwd_markers, bwd_markers))
+        for k, frag in TRAIN_KERNEL_NAMES.items():
+            seen[k] |= {n for n in fwd + bwd if frag in n and "::" not in n}
+        if all(seen.values()):
+            break
+    for name in TRAIN_KERNEL_NAMES:
+        assert seen[name], f"no {name} kernel in {tries} traces " \
+            f"(markers left {markers})"
+    # the lookup's sort and its backward's; the gather; the backward's
+    # add; attention in each layer's forward and again in its recompute
+    cfg = lm.cfg
+    want = {"bitonic_sort": 2, "sorted_gather": 1, "sorted_scatter": 1,
+            "flash_attention": (1 + cfg.remat) * sum(
+                cfg.layer_kinds(l)[0] == "attn"
+                for l in range(cfg.num_layers))}
+    assert {n: launches[n] for n in want} == want, launches
+    off_path = {n: c for n, c in launches.items()
+                if n not in TRAIN_KERNEL_NAMES}
+    assert not any(off_path.values()), f"off-path launches {off_path}"
+    bad = [i for i, g in enumerate(grads)
+           if not bool(torch.isfinite(g).all())]
+    assert not bad, f"non-finite gradients at leaves {bad}"
+    out.update(loss=float(loss), grad_launches=launches,
+               grad_kernels={k: sorted(v) for k, v in seen.items()},
+               grad_traces=tries, grad_trace_markers=markers,
+               leaves=len(grads))
+    assert len(reached) == 1, len(reached)
+    table_at = leaf_names(params).index("embed/table")
+    out.update(check_train_embed(params["embed"]["table"], batch["tokens"],
+                                 reached.pop(), grads[table_at], cfg.mc))
+    it = iter(grads)
+    grads = map_tree(lambda _: next(it), params)
+    _, _, plain_grads = loss_and_grads(plain, params, batch)
+    errs = grad_rel_errs(grads, plain_grads)
+    out["bf16_grad_rel_errs"] = dict(zip(leaf_names(params), errs))
+    del grads, plain_grads
+    torch.cuda.empty_cache()
+
+    p32 = map_tree(lambda t: t.float(), params)
+    lm32, plain32 = (dataclasses.replace(m, cfg=dataclasses.replace(
+        m.cfg, param_dtype="float32")) for m in (lm, plain))
+    loss32, _, g32 = loss_and_grads(lm32, p32, batch)
+    loss32_off, _, g32_off = loss_and_grads(plain32, p32, batch)
+    errs = grad_rel_errs(g32, g32_off)
+    out.update(f32_loss=float(loss32), f32_loss_off=float(loss32_off),
+               f32_grad_rel_errs=dict(zip(leaf_names(params), errs)),
+               f32_grad_rel_bound=TRAIN_F32_REL_BOUND)
+    assert all(bool(torch.isfinite(g).all()) for g in leaves(g32))
+    assert max(errs) <= TRAIN_F32_REL_BOUND, out
+    return out
+
+
+def run_train(dev) -> dict:
+    """Phase 8, train: ``Trainer`` (``repro_torch.launch.train``) on
+    TRAIN_ARCH uncut, random weights from seed 0, make_batch's TRAIN_BATCH
+    x TRAIN_SEQ tokens a step, AdamW (TRAIN_OPT). First the gradient
+    checks of ``train_grads`` on step 0's batch; then TRAIN_STEPS steps
+    through ``Trainer.run`` with an async checkpoint after step
+    TRAIN_CKPT (under build/, removed after), counters zeroed just before
+    and read just after: B1, B2, B3 and B6 must each have run; the loss
+    must fall (the mean of the last two steps' below the first step's by
+    0.1); then a new ``Trainer`` resumes from the checkpoint and must
+    repeat the later steps' losses (rtol 1e-6). Prints step seconds,
+    tokens a second, peak memory and the card."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    ckpt_dir = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tc = TrainerConfig(arch=TRAIN_ARCH, steps=TRAIN_STEPS, seed=SEED,
+                       batch_override=TRAIN_BATCH, seq_override=TRAIN_SEQ,
+                       ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT,
+                       log_every=TRAIN_STEPS, opt=TRAIN_OPT,
+                       device=str(dev))
+    trainer = Trainer(tc)
+    cfg = trainer.cfg
+    t0 = time.perf_counter()
+    params, _, _ = trainer.init_state()
+    torch.cuda.synchronize()
+    out = dict(arch=cfg.name, layers=cfg.num_layers,
+               params=cfg.param_count(), param_bytes=param_bytes(params),
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat=cfg.remat,
+               remat_policy=cfg.remat_policy,
+               init_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out.update(train_grads(dev, trainer, params, trainer.batch_at(0)))
+    out["grad_checks_s"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["grad_peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        run = trainer.run()
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        launches = read_launches("train")
+        for name in TRAIN_KERNEL_NAMES:
+            assert launches[name] > 0, f"{name} did not run in training"
+        history = run["history"]
+        step_s = list(trainer.watchdog.times)
+        out.update(launches=launches, losses=history, step_s=step_s,
+                   median_step_s=run["median_step_s"],
+                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
+                   / run["median_step_s"],
+                   peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        assert all(math.isfinite(x) for x in history), history
+        assert np.mean(history[-2:]) < history[0] - 0.1, history
+        del run, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = Trainer(tc).run()["history"]
+        torch.cuda.synchronize()
+        out.update(resume_s=time.perf_counter() - t0, resumed=resumed)
+        assert len(resumed) == TRAIN_STEPS - TRAIN_CKPT, resumed
+        np.testing.assert_allclose(resumed, history[TRAIN_CKPT:], rtol=1e-6)
+        out["resume_max_abs_diff"] = float(np.abs(
+            np.asarray(resumed) - np.asarray(history[TRAIN_CKPT:])).max())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out["card"] = card()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3528,7 +3848,8 @@ def run(dev) -> None:
                 layers=SERVE_HYBRID_LAYERS)),
             ("encoder", lambda: run_encoder(dev)),
             ("vlm", lambda: run_vlm(dev)),
-            ("capture", lambda: run_capture(dev))):
+            ("capture", lambda: run_capture(dev)),
+            ("train", lambda: run_train(dev))):
         t0 = time.perf_counter()
         v = run_path()
         say(phase="slice", path=path, seconds=time.perf_counter() - t0, **v)

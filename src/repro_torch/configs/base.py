@@ -6,9 +6,10 @@ here because ``repro_torch`` imports nothing from ``repro``;
 the reference's ``use_pallas`` (off by default, read by no model) is
 ``use_kernels`` here, on by default, as on ``MemoryController``: it routes
 the model's prefill attention through kernel B6 for CUDA tensors.
-Fields that name a JAX mechanism (``remat``, ``scan_layers``,
-``loss_chunks``) are carried for parity; the port's layer walk is a
-Python loop and reads none of them yet.
+``remat`` and ``remat_policy`` checkpoint each layer of the train walk
+with ``torch.utils.checkpoint``, and ``loss_chunks`` each chunk of the
+loss, as ``jax.checkpoint`` does in the reference; ``scan_layers`` is
+carried for parity (the port's layer walk is a Python loop).
 
 Every assigned architecture is a frozen ``ArchConfig``; every workload
 shape is a ``ShapeConfig``. ``(arch, shape)`` cells drive the smoke tests,

@@ -12,8 +12,9 @@ CUDA-core kernel (entry ``flash_attention_fwd``); ``LIB.entry_launches``
 counts each route. On a CPU tensor it runs ``flash_attention_plain``, the
 blocked online-softmax loop of the reference's XLA path
 (``repro.models.layers.flash_attention``), whose result does not depend on
-its block sizes beyond float32 summation order. Counterpart of
-``repro.kernels.flash_attention.kernel``; unlike that Pallas op, any S >= 1
+its block sizes beyond float32 summation order. The backward, on every
+device, is autograd through that plain version (``FlashAttention``).
+Counterpart of ``repro.kernels.flash_attention.kernel``; unlike that Pallas op, any S >= 1
 is taken.
 """
 
@@ -150,11 +151,47 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     or >= 1. Any layout whose head_dim axis has stride 1 runs without a
     copy (for bf16 and f16, one whose rows also start 16-byte aligned; any
     other is copied first). ``q_block`` and
-    ``kv_block`` are the plain version's tiles (CPU tensors only); the
-    kernels' are fixed. Anything else raises ``ValueError``.
+    ``kv_block`` are the plain version's tiles (CPU tensors, and the
+    backward on any device); the kernels' are fixed. Anything else raises
+    ``ValueError``. Differentiable through ``FlashAttention``.
     """
     _check(q, k, v, window)
-    out_dtype = _out_dtype(q, out_dtype)
+    return FlashAttention.apply(q, k, v, causal, window, q_block, kv_block,
+                                _out_dtype(q, out_dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """B6 under autograd. The forward launches the kernel (its plain
+    version on a CPU tensor), which autograd cannot follow; the backward
+    recomputes the attention through ``flash_attention_plain`` under
+    autograd, from the saved q, k and v, on every device and for every
+    dtype, and returns its gradients. The reference has no Pallas
+    backward either: it trains through its XLA attention."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_block, kv_block, out_dtype):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, q_block=q_block,
+                        kv_block=kv_block, out_dtype=out_dtype)
+        return _forward(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        wanted = ctx.needs_input_grad[:3]
+        qkv = [t.detach().requires_grad_(w)
+               for t, w in zip(ctx.saved_tensors, wanted)]
+        with torch.enable_grad():
+            out = flash_attention_plain(*qkv, **ctx.opts)
+        grads = iter(torch.autograd.grad(
+            out, [t for t, w in zip(qkv, wanted) if w], grad))
+        return (*(next(grads) if w else None for w in wanted),
+                None, None, None, None, None)
+
+
+def _forward(q, k, v, *, causal, window, q_block, kv_block,
+             out_dtype) -> torch.Tensor:
+    """The forward of checked inputs: the plain version for CPU tensors,
+    else the kernel of q's dtype."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_block=q_block, kv_block=kv_block,

@@ -1,5 +1,17 @@
-"""Launch layer: the serve driver and the Chrome-trace export of a lifecycle
-trace (train, dry-run and roofline come later).
+"""Launch layer: the train and serve drivers and the Chrome-trace export of
+a lifecycle trace (dry-run and roofline come later).
 
-Counterpart of ``repro.launch``.
+Counterpart of ``repro.launch``. ``Trainer``, ``TrainerConfig`` and
+``make_train_step`` are ``repro_torch.launch.train``'s, loaded on first
+use (so that ``python -m repro_torch.launch.train`` runs that module
+once).
 """
+
+__all__ = ["Trainer", "TrainerConfig", "make_train_step"]
+
+
+def __getattr__(name):
+    if name in __all__:
+        from repro_torch.launch import train
+        return getattr(train, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -38,6 +38,7 @@ from repro_torch.core.config import MemoryControllerConfig
 from repro_torch.core.controller import MemoryController
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.sorted_gather import kernel as sg_kernel
+from repro_torch.kernels.sorted_scatter import ops as ss_ops
 
 NEG = fa_kernel.NEG
 
@@ -165,13 +166,25 @@ def mc_embed(table: torch.Tensor, tokens: torch.Tensor,
     the whole stream forms a single scheduler batch instead of bypassing
     the controller. With ``use_kernels`` the sort is the bitonic network
     (B1) and the row gather the sorted-gather kernel (B2), their plain
-    versions for CPU tensors. Value-identical to ``table[tokens]``.
+    versions for CPU tensors, and the lookup's backward is the
+    controller's embedding-gradient write (``EmbedLookup``). Value-identical
+    to ``table[tokens]``.
     """
     _capture_embed("embed_gather", table, tokens, rw=0)
     d = table.shape[-1]
     if not mc.scheduler.enabled:
         return table.index_select(0, tokens.reshape(-1)).reshape(
             *tokens.shape, d)
+    if use_kernels:
+        return EmbedLookup.apply(table, tokens)
+    return _scheduled_lookup(table, tokens, use_kernels=False)
+
+
+def _scheduled_lookup(table: torch.Tensor, tokens: torch.Tensor, *,
+                      use_kernels: bool) -> torch.Tensor:
+    """Sort each scheduler batch (B1), gather its rows in sorted order
+    (B2) and unsort them into arrival order."""
+    d = table.shape[-1]
     keys = tokens.reshape(-1) if tokens.ndim < 2 else \
         tokens.reshape(-1, tokens.shape[-1])
     sorted_tok, _, inv = scheduler.sort_requests(keys,
@@ -183,6 +196,37 @@ def mc_embed(table: torch.Tensor, tokens: torch.Tensor,
         inv = inv + torch.arange(0, flat.shape[0], keys.shape[1],
                                  dtype=inv.dtype, device=inv.device)[:, None]
     return gathered.index_select(0, inv.reshape(-1)).reshape(*tokens.shape, d)
+
+
+class EmbedLookup(torch.autograd.Function):
+    """``mc_embed``'s kernel route under autograd. The forward is the
+    scheduled lookup (B1's sort, B2's gather, the unsort); the gather is a
+    ``ctypes`` launch that autograd cannot follow. The backward is the
+    embedding-gradient WRITE batch of the controller's scheduler: B1
+    stable-sorts the whole batch's token ids and B3 adds each token's
+    gradient row into a zero table (``sorted_scatter`` with
+    ``mode="add"``), each row's addends summed in at least float32 in an
+    order the batch fixes and rounded once, so the table's gradient has
+    the same bits on every call (``index_select``'s own CUDA backward adds
+    with atomics). It is
+    reported to an active capture as ``mc_scatter``'s write is. CPU
+    tensors take both directions' plain versions."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape = table.shape
+        return _scheduled_lookup(table, tokens, use_kernels=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (tokens,) = ctx.saved_tensors
+        zero = grad.new_zeros(ctx.table_shape)
+        _capture_embed("embed_scatter", zero, tokens, rw=1)
+        return ss_ops.sorted_scatter(zero, tokens, grad, mode="add",
+                                     use_bitonic=True), None
 
 
 def mc_scatter(table: torch.Tensor, tokens: torch.Tensor,

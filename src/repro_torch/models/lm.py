@@ -21,11 +21,13 @@ Entry points (the shape cells map onto these):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import capture as capture_mod
@@ -178,22 +180,38 @@ class LM:
         ``params["layers"][f"pos{pos}"]`` at ``[g]`` and its cache entry
         ``cache[f"pos{pos}"][kind]`` at ``[g]``. ``on_cache(pos, g, c)``
         receives each layer's new cache entries (``{"attn": kv}`` or
-        ``{"mamba": state}``). Returns (x, aux summed over layers)."""
+        ``{"mamba": state}``). With ``cfg.remat``, a train walk under
+        autograd checkpoints each layer (``_train_block``): backward
+        recomputes it from its input. Returns (x, aux summed over
+        layers)."""
         P = self.cfg.scan_period
         aux = _zero_aux(x.device)
+        remat = mode == "train" and self.cfg.remat and torch.is_grad_enabled()
+        remat_kw = _remat_kwargs(self.cfg.remat_policy) if remat else None
         for l in range(self.cfg.num_layers):
             pos, g = f"pos{l % P}", l // P
             bp = map_tree(lambda t: t[g], params["layers"][pos])
-            c = None
-            if cache is not None:
-                c = {k: type(v)(*(t[g] for t in v))
-                     for k, v in cache[pos].items()}
-            x, a, nc = self._run_block(bp, x, positions, mode, cache=c,
-                                       cur_len=cur_len)
+            if remat:
+                x, a = checkpoint(self._train_block, bp, x, positions,
+                                  **remat_kw)
+                nc = {}
+            else:
+                c = None
+                if cache is not None:
+                    c = {k: type(v)(*(t[g] for t in v))
+                         for k, v in cache[pos].items()}
+                x, a, nc = self._run_block(bp, x, positions, mode, cache=c,
+                                           cur_len=cur_len)
             if a is not None:
                 aux = {k: aux[k] + a[k] for k in aux}
             if on_cache is not None:
                 on_cache(pos, g, nc)
+        return x, aux
+
+    def _train_block(self, bp, x, positions):
+        """One layer of the train walk without its cache: the function
+        that ``cfg.remat`` checkpoints. Returns (x, aux or None)."""
+        x, aux, _ = self._run_block(bp, x, positions, "train")
         return x, aux
 
     # ---------------- public entry points -----------------------------------
@@ -229,19 +247,25 @@ class LM:
         hybrid models ``1e-2 * load_balance + router_z``. Labels are
         left-padded over a vision prefix (``_full_labels``). With
         ``loss_chunks`` the LM head and CE run one sequence chunk at a
-        time (the (B,S,V) logits never exist at once); the value is the
-        same."""
+        time, each checkpointed under autograd (the (B,S,V) logits never
+        exist at once); the value is the same."""
         cfg = self.cfg
         x, aux, x_mask = self._backbone(params, batch)
         S = x.shape[1]
         labels = self._full_labels(batch, S)
         n = cfg.loss_chunks or 1
         C = -(-S // n)
+        def terms(xc, lc, mc):
+            return self._ce_terms(layers.mm(xc, params["lm_head"]), lc, mc)
+
+        if cfg.loss_chunks and torch.is_grad_enabled():
+            # each chunk's logits are recomputed in backward, as the
+            # reference's jax.checkpoint does
+            terms = functools.partial(checkpoint, terms, use_reentrant=False)
         ce_sum = z_sum = m_sum = 0.0
         for s in range(0, S, C):
-            c, z, m = self._ce_terms(layers.mm(x[:, s:s + C],
-                                               params["lm_head"]),
-                                     labels[:, s:s + C], x_mask[:, s:s + C])
+            c, z, m = terms(x[:, s:s + C], labels[:, s:s + C],
+                            x_mask[:, s:s + C])
             ce_sum, z_sum, m_sum = ce_sum + c, z_sum + z, m_sum + m
         denom = torch.clamp(m_sum, min=1.0)
         loss = ce_sum / denom
@@ -347,6 +371,29 @@ class LM:
                             cur_len=cur_len, on_cache=store)
         xn = layers.rms_norm(x, params["final_norm"])
         return layers.mm(xn, params["lm_head"])[:, :cfg.vocab_size], cache
+
+
+def _remat_kwargs(policy: str) -> dict:
+    """``checkpoint``'s arguments for ``cfg.remat_policy``: "nothing" keeps
+    only the layer's inputs and recomputes the whole layer in backward
+    (``jax.checkpoint_policies.nothing_saveable``); "dots" also keeps the
+    outputs of its matrix products (``dots_saveable``)."""
+    if policy == "nothing":
+        return dict(use_reentrant=False)
+    if policy != "dots":
+        raise ValueError(f"remat_policy {policy!r}: need 'nothing' or "
+                         f"'dots'")
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    dots = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default}
+
+    def keep_dots(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in dots
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return dict(use_reentrant=False, context_fn=functools.partial(
+        create_selective_checkpoint_contexts, keep_dots))
 
 
 def _zero_aux(device) -> Dict[str, torch.Tensor]:

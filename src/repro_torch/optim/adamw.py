@@ -1,0 +1,102 @@
+"""AdamW with float32 moments over bf16 params.
+
+Counterpart of ``repro.optim.adamw``, expression for expression in torch:
+linear warmup then cosine decay, global-norm clipping, bias-corrected
+moments, and decoupled weight decay on matrices only (``ndim >= 2``). The
+update math runs in float32 whatever the parameter dtype, and each new
+parameter is rounded to its dtype once. Trees are nested dicts of tensors
+(a parameter tree, its gradients, the moments), walked in sorted key
+order (``models.params.map_tree``). The update is functional: it returns
+new trees and changes none of its arguments.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.models.params import leaves, map_tree
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    peak_lr: float = 3e-4
+    min_lr_ratio: float = 0.1
+    warmup_steps: int = 200
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+def lr_schedule(step, cfg: OptimizerConfig) -> torch.Tensor:
+    """Linear warmup → cosine decay to min_lr_ratio·peak, as a float32
+    tensor (on ``step``'s device when it is a tensor)."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = step / max(1.0, cfg.warmup_steps)
+    t = (step - cfg.warmup_steps) / max(1.0,
+                                        cfg.total_steps - cfg.warmup_steps)
+    t = torch.clamp(t, 0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (
+        1 + torch.cos(math.pi * t))
+    return cfg.peak_lr * torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_opt_state(params) -> Dict[str, Any]:
+    """Zero float32 moments beside each parameter and step 0 (int32, on
+    the first parameter's device)."""
+    device = leaves(params)[0].device
+    f32_like = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                     device=p.device)
+    return {"m": map_tree(f32_like, params),
+            "v": map_tree(f32_like, params),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in leaves(tree)))
+
+
+@torch.no_grad()
+def adamw_update(grads, opt_state, params, cfg: OptimizerConfig
+                 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One AdamW step (with global-norm clipping). Returns
+    (new_params, new_opt_state, metrics)."""
+    step = opt_state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    lr = lr_schedule(step, cfg)
+    b1c = 1 - torch.pow(cfg.b1, step.float())
+    b2c = 1 - torch.pow(cfg.b2, step.float())
+
+    def upd(p, g, m, v):
+        g = g.float() * scale
+        m_new = cfg.b1 * m + (1 - cfg.b1) * g
+        v_new = cfg.b2 * v + (1 - cfg.b2) * g * g
+        mh = m_new / b1c
+        vh = v_new / b2c
+        delta = mh / (torch.sqrt(vh) + cfg.eps)
+        # decoupled weight decay on matrices only (ndim >= 2)
+        if p.ndim >= 2:
+            delta = delta + cfg.weight_decay * p.float()
+        p_new = (p.float() - lr * delta).to(p.dtype)
+        return p_new, m_new, v_new
+
+    out = [upd(p, g, m, v) for p, g, m, v in zip(
+        leaves(params), leaves(grads), leaves(opt_state["m"]),
+        leaves(opt_state["v"]))]
+
+    def tree(i):
+        it = iter(o[i] for o in out)
+        return map_tree(lambda _: next(it), params)
+
+    new_state = {"m": tree(1), "v": tree(2), "step": step}
+    return tree(0), new_state, {"grad_norm": gnorm, "lr": lr}

@@ -62,7 +62,9 @@ def test_no_module_imports_jax_or_the_reference_package():
             "repro_torch.kernels.flash_attention.kernel",
             "repro_torch.core.pipeline", "repro_torch.core.channels",
             "repro_torch.data.model_traces",
-            "repro_torch.data.synthetic"} <= set(mods)
+            "repro_torch.data.synthetic", "repro_torch.optim.adamw",
+            "repro_torch.checkpoint.store", "repro_torch.runtime.watchdog",
+            "repro_torch.launch.train"} <= set(mods)
     assert len(mods) > 15
     code = (
         "import importlib, sys\n"
