@@ -232,6 +232,24 @@ Phases (a failing phase raises and the script exits non-zero):
    losses. Prints the step seconds, tokens a second,
    peak memory and the card.
 
+9. distributed (``run_distributed``, in a one-rank NCCL group made
+   through a ``FileStore``): the train phase's model, batches and AdamW
+   on a (1,1) ``("data", "model")`` CUDA mesh, parameters and moments
+   DTensors laid out by the reference's specs, every kernel on its
+   local shard: two steps held leaf by leaf to an unsharded ``Trainer``
+   from the same seed, each gradient's launches (B1 2, B2 1, B3 1, B6
+   48) named in its traces, ``Trainer.run`` on the mesh repeating the
+   losses; then ``Server(arch, mesh=mesh)`` serving the serve phase's
+   mix at h2o-danube-1.8b with the unsharded server's greedy tokens.
+10. moe_ep: jamba-v0.1-52b's MoE layer at full width in float32 (16
+   experts, 11.3 GB) on 4 x 2048 tokens: ``moe_ffn_ep`` on the mesh
+   (NCCL's all-to-all in its trace) against ``blocks.moe_ffn``.
+11. dryrun (host only, after the NCCL group is gone): the train phase's
+   step as a share of the bf16 peak (6·N·D over its median step), then
+   ``launch.dryrun.run_cell`` of h2o-danube-1.8b/train_4k on 256 fake
+   ranks with ``meta`` tensors: per-device FLOPs, state bytes (pinned),
+   collective bytes, the roofline seconds and bottleneck; no launch.
+
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches on its own path, and ``launches_by_path`` on every path); the
 last line is ``{"ok": true, "device": {...}}``.
@@ -439,6 +457,11 @@ VLM_F32_LAYERS = 8
 # from this random init a peak of 1e-4 or more throws step 1's loss up
 # (by 2 to 8 nats on the card) before it falls.
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "h2o-danube-1.8b", 4, 2048
+# B6 at the train path's shape (h2o-danube-1.8b: 32/8 heads of 80, causal,
+# window 4096) and at the encoder path's (hubert-xlarge, float32, 16/16
+# heads of 80, bidirectional), timed beside the serve path's.
+TRAIN_ATTN_SHAPE, TRAIN_ATTN_WINDOW = (TRAIN_BATCH, TRAIN_SEQ, 32, 8, 80), 4096
+ENCODER_ATTN_SHAPE = (8, 1024, 16, 16, 80)
 TRAIN_STEPS, TRAIN_CKPT = 5, 3
 TRAIN_OPT = OptimizerConfig(peak_lr=3e-5, warmup_steps=2, total_steps=100)
 # The gradient of every leaf kernels on against off, in float32: the bound
@@ -461,6 +484,19 @@ TRAIN_TRACES = 3
 TRAIN_KERNEL_NAMES = {"bitonic_sort": "bitonic_", "sorted_gather":
                       "gather_rows_", "sorted_scatter": "scatter_add_",
                       "flash_attention": "flash_fwd"}
+# The distributed phase: the train path's model, batch and optimizer on
+# a one-rank ("data", "model") mesh for DIST_STEPS steps, held to the
+# unsharded trainer bit for bit. The moe_ep phase: one MoE layer of
+# MOE_EP_ARCH at full width in float32, MOE_EP_BATCH x MOE_EP_SEQ tokens
+# at capacity factor MOE_EP_CF, EP against the token-choice dispatch
+# within MOE_EP_REL_BOUND. The dryrun phase: DRYRUN_CELL on the fake
+# 16x16 mesh, whose parameters and AdamW moments per device
+# (tests/test_torch_dryrun.py) must be DRYRUN_STATE_BYTES.
+DIST_MESH, DIST_STEPS = (1, 1), 2
+MOE_EP_ARCH, MOE_EP_BATCH, MOE_EP_SEQ = "jamba-v0.1-52b", 4, 2048
+MOE_EP_CF, MOE_EP_REL_BOUND = 8.0, 1e-4
+DRYRUN_CELL = ("h2o-danube-1.8b", "train_4k")
+DRYRUN_STATE_BYTES = 5 * 24_156_160 + 4
 # The autotune phase: benchmarks/perf_model_traces.py's two grids (that
 # module imports the reference package, so they are copied here). The full
 # grid on the six pinned family traces reproduces BENCH_model_traces.json's
@@ -2323,27 +2359,47 @@ def check_attention(dev, gen) -> dict:
 
 
 def timings_attention(dev, gen) -> dict:
-    """Phase 5, B6 at the serve path's prefill shape: the kernel, its plain
-    version and ``scaled_dot_product_attention`` (in its (B, H, S, hd)
-    layout), beside the bound: the two products' FLOPs over the bf16
-    tensor-core rate, or q, k, v and o over the memory rate."""
-    B, S, H, KV, hd = ATTN_SHAPE
-    q, k, v = attention_inputs(gen, dev, ATTN_SHAPE, torch.bfloat16)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    flops = 4 * B * H * hd * attention_pairs(S, True, None)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    t_ops, t_bytes = flops / TENSOR_BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    call = lambda: fa_kernel.flash_attention_fwd(q, k, v)
-    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    row = dict(
-        ms=time_ms(call), device_ms=device_trace(call)["ms"],
-        plain_ms=time_ms(lambda: fa_kernel.flash_attention_plain(q, k, v)),
-        library_ms=time_ms(lib), library_device_ms=device_trace(lib)["ms"],
-        bound_ms=max(t_ops, t_bytes) * 1e3,
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        flops=flops, bytes=nbytes)
-    return {f"{B}x{S} tokens, {H}/{KV} heads, hd {hd}, bf16, causal": row}
+    """Phase 5, B6 at the serve path's prefill shape (first: the kernel
+    line's row), at the encoder path's float32 shape (the CUDA-core
+    route) and at the train path's shape: the kernel, its plain version
+    and ``scaled_dot_product_attention`` on the same inputs (in its (B, H,
+    S, hd) layout; no window argument, and each window here spans the
+    whole sequence), beside the bound: the two products' FLOPs over the
+    rate of the route's type (bf16 tensor cores, or float32 outside them),
+    or q, k, v and o over the memory rate."""
+    out = {}
+    for shape, dtype, causal, window in (
+            (ATTN_SHAPE, torch.bfloat16, True, None),
+            (ENCODER_ATTN_SHAPE, torch.float32, False, None),
+            (TRAIN_ATTN_SHAPE, torch.bfloat16, True, TRAIN_ATTN_WINDOW)):
+        B, S, H, KV, hd = shape
+        assert window is None or window >= S
+        q, k, v = attention_inputs(gen, dev, shape, dtype)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        flops = 4 * B * H * hd * attention_pairs(S, causal, window)
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        rate = (TENSOR_BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                else NONTENSOR_OPS_PER_S)
+        t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
+        kw = dict(causal=causal, window=window)
+        call = lambda: fa_kernel.flash_attention_fwd(q, k, v, **kw)
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        row = dict(
+            ms=time_ms(call), device_ms=device_trace(call)["ms"],
+            plain_ms=time_ms(lambda: fa_kernel.flash_attention_plain(
+                q, k, v, **kw)),
+            library_ms=time_ms(lib), library_device_ms=device_trace(lib)["ms"],
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            flops=flops, bytes=nbytes, route=fa_kernel.ROUTES[dtype])
+        mask = "causal" if causal else "bidirectional"
+        if window is not None:
+            mask += f", window {window}"
+        out[f"{B}x{S} tokens, {H}/{KV} heads, hd {hd}, "
+            f"{str(dtype).split('.')[-1]}, {mask}"] = row
+        del q, k, v, qt, kt, vt
+    return out
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3719,6 +3775,280 @@ def run_train(dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def one_rank_group(dev):
+    """A one-rank NCCL process group through a ``FileStore`` in a
+    temporary directory (no network), for the span of the block."""
+    import torch.distributed as dist
+    torch.cuda.set_device(dev)
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def traced_mesh_grads(lm, params, batch):
+    """``loss_and_grads`` on a mesh, its forward and its backward each
+    under ``traced_kernels``: (loss, grads in the parameters' layouts,
+    kernel names of both traces, markers kept)."""
+    flat = [p.detach().requires_grad_() for p in leaves(params)]
+    it = iter(flat)
+    tree = map_tree(lambda _: next(it), params)
+    (loss, _), fwd, fwd_markers = traced_kernels(lambda: lm.loss(tree,
+                                                                 batch))
+    with lm._on_mesh():
+        grads, bwd, bwd_markers = traced_kernels(
+            lambda: torch.autograd.grad(loss, flat))
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             for p, g in zip(flat, grads)]
+    it = iter(grads)
+    return (loss, map_tree(lambda _: next(it), params), fwd + bwd,
+            (fwd_markers, bwd_markers))
+
+
+def run_distributed(dev) -> dict:
+    """Phase 9, distributed (in a one-rank NCCL group): TRAIN_ARCH uncut
+    on a DIST_MESH ``("data", "model")`` CUDA mesh. An unsharded
+    ``Trainer`` takes DIST_STEPS steps of the train phase's batches and
+    AdamW, and an unsharded ``Server(TRAIN_ARCH)`` serves the serve
+    phase's request mix; then the counters are zeroed and only mesh runs
+    follow. ``Trainer(tc, mesh=mesh)``'s model and state, from the same
+    seed, take the same steps (its ``loss_and_grads`` and
+    ``adamw_update``, each gradient traced): every parameter leaf after
+    each step, the losses, and the moments after the last step must
+    equal the unsharded run's bit for bit (a (1,1) mesh runs the same
+    local ops on whole tensors), every leaf's gradient finite, B1 2,
+    B2 1, B3 1 and B6 48 launches a gradient, each named in the traces.
+    ``Trainer.run`` on the mesh must repeat the losses with DIST_STEPS
+    gradients' launches. Then ``Server(TRAIN_ARCH, mesh=mesh)`` serves
+    the same mix with the unsharded server's greedy tokens and exactly
+    its launches of every kernel."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.sharding import full
+    from repro_torch.optim import adamw_update
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_test_mesh(DIST_MESH, device_type="cuda")
+    tc = TrainerConfig(arch=TRAIN_ARCH, steps=DIST_STEPS, seed=SEED,
+                       batch_override=TRAIN_BATCH, seq_override=TRAIN_SEQ,
+                       log_every=DIST_STEPS, opt=TRAIN_OPT, device=str(dev))
+    one = Trainer(tc)
+    params, opt, _ = one.init_state()
+    want, one_s = [], []
+    for step in range(DIST_STEPS):
+        batch = one.batch_at(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = one.step_fn(params, opt, batch)
+        loss = float(m["loss"])
+        one_s.append(time.perf_counter() - t0)
+        want.append((loss, [t.cpu() for t in leaves(params)]))
+    want_moments = [t.cpu() for t in leaves({"m": opt["m"], "v": opt["v"]})]
+    del one, params, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = {}
+
+    def serve_once(name, **kw):
+        server = Server(TRAIN_ARCH, **kw)
+        reqs = serve_requests(server.cfg)
+        before = {n: lib.launches for n, lib in LIBS.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = server.serve(reqs)
+        serve[f"{name}_s"] = time.perf_counter() - t0
+        serve[f"{name}_launches"] = {n: LIBS[n].launches - before[n]
+                                     for n in LIBS}
+        check_outputs(stats, reqs, server.cfg)
+        serve[f"{name}_tokens"] = [r.output for r in reqs]
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    serve_once("one", device=dev)
+
+    sharded = Trainer(tc, mesh=mesh)
+    lm = sharded.lm
+    p2, o2, _ = sharded.init_state()
+    cfg = lm.cfg
+    per_grad = {"bitonic_sort": 2, "sorted_gather": 1, "sorted_scatter": 1,
+                "flash_attention": (1 + cfg.remat) * sum(
+                    cfg.layer_kinds(l)[0] == "attn"
+                    for l in range(cfg.num_layers))}
+    seen = {k: set() for k in TRAIN_KERNEL_NAMES}
+    out = dict(mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               layouts=sorted({str(tuple(t.placements))
+                               for t in leaves(p2)}), losses=[],
+               want_losses=[w[0] for w in want], bits_equal=[],
+               leaf_rel_errs=[], unsharded_step_s=one_s, markers=[])
+    zero_launches()
+    for step in range(DIST_STEPS):
+        batch = sharded.batch_at(step)
+        before = {n: lib.launches for n, lib in LIBS.items()}
+        loss, grads, names, kept = traced_mesh_grads(lm, p2, batch)
+        launched = {n: LIBS[n].launches - before[n] for n in per_grad}
+        assert launched == per_grad, launched
+        assert all(bool(torch.isfinite(g.to_local()).all())
+                   for g in leaves(grads)), "a non-finite gradient"
+        with lm._on_mesh():
+            p2, o2, _ = adamw_update(grads, o2, p2, TRAIN_OPT)
+        for k, frag in TRAIN_KERNEL_NAMES.items():
+            seen[k] |= {n for n in names if frag in n and "::" not in n}
+        out["markers"].append(kept)
+        got = [full(t) for t in leaves(p2)]
+        out["losses"].append(float(full(loss.detach())))
+        out["bits_equal"].append(
+            out["losses"][-1] == want[step][0] and all(
+                same_bits(a.cpu(), b) for a, b in zip(got, want[step][1])))
+        out["leaf_rel_errs"].append(max(rel_err(a.float(), b.to(a.device)
+                                                .float())
+                                        for a, b in zip(got, want[step][1])))
+        del grads, got
+    moments = [full(t) for t in leaves({"m": o2["m"], "v": o2["v"]})]
+    out["moments_bits_equal"] = all(same_bits(a.cpu(), b)
+                                    for a, b in zip(moments, want_moments))
+    out["moments_rel_err"] = max(rel_err(a, b.to(a.device))
+                                 for a, b in zip(moments, want_moments))
+    for name, frag in TRAIN_KERNEL_NAMES.items():
+        assert seen[name], f"no {name} kernel in the mesh traces"
+    out.update(grad_launches=per_grad,
+               grad_kernels={k: sorted(v) for k, v in seen.items()})
+    assert all(out["bits_equal"]) and out["moments_bits_equal"], out
+    del p2, o2, moments, want, want_moments
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(tc, mesh=mesh)
+    before = {n: lib.launches for n, lib in LIBS.items()}
+    run = trainer.run()
+    out.update(trainer_losses=run["history"],
+               trainer_launches={n: LIBS[n].launches - before[n]
+                                 for n in per_grad},
+               step_s=list(trainer.watchdog.times))
+    np.testing.assert_allclose(out["trainer_losses"], out["losses"],
+                               rtol=1e-6)
+    assert out["trainer_launches"] == {
+        n: DIST_STEPS * k for n, k in per_grad.items()}, \
+        out["trainer_launches"]
+    del trainer, run
+    out["train_peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    serve_once("mesh", mesh=mesh)
+    launches = read_launches("distributed")
+    for name in ("bitonic_sort", "sorted_gather", "flash_attention"):
+        assert serve["mesh_launches"][name] > 0, \
+            f"{name} did not run in the mesh server"
+    assert serve["mesh_launches"] == serve["one_launches"], serve
+    # only the mesh runs above: two traced gradients, Trainer.run's
+    # DIST_STEPS steps and the mesh serve
+    assert launches == {n: 2 * DIST_STEPS * per_grad.get(n, 0)
+                        + serve["mesh_launches"][n] for n in LIBS}, \
+        (launches, serve)
+    assert serve["mesh_tokens"] == serve["one_tokens"], \
+        "mesh server's tokens differ"
+    out.update(serve_tokens_equal=True, launches=launches,
+               **{f"serve_{k}": v for k, v in serve.items()
+                  if not k.endswith("_tokens")},
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               card=card())
+    return out
+
+
+def run_moe_ep(dev) -> dict:
+    """Phase 10, moe_ep (in the one-rank NCCL group): one MoE layer of
+    MOE_EP_ARCH at full width (16 experts, d_model 4096, d_expert 14336,
+    float32 weights from seed 0, 11.3 GB of experts) on MOE_EP_BATCH x
+    MOE_EP_SEQ Gaussian tokens at capacity factor MOE_EP_CF:
+    ``moe_ffn_ep`` on the DIST_MESH mesh against ``blocks.moe_ffn`` (the
+    token-choice dispatch, one device), within MOE_EP_REL_BOUND of the
+    largest output and the aux losses within 1e-6; NCCL's all-to-all
+    kernel must be in the EP call's trace. Prints each route's seconds,
+    timed warm and untraced, and the peak GB."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.moe_ep import moe_ffn_ep
+    from repro_torch.models.sharding import full, is_dtensor
+    cfg = get_arch(MOE_EP_ARCH)
+    cfg = dataclasses.replace(cfg, param_dtype="float32",
+                              moe=dataclasses.replace(
+                                  cfg.moe, capacity_factor=MOE_EP_CF))
+    E, D, Fe = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_expert
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    def w(*shape, fan_in):
+        return torch.randn(shape, generator=gen, device=dev) / fan_in ** 0.5
+
+    p = {"ln": torch.ones(D, device=dev), "router": w(D, E, fan_in=D),
+         "w_gate": w(E, D, Fe, fan_in=D), "w_up": w(E, D, Fe, fan_in=D),
+         "w_down": w(E, Fe, D, fan_in=Fe)}
+    x = torch.randn((MOE_EP_BATCH, MOE_EP_SEQ, D), generator=gen,
+                    device=dev)
+    mesh = make_test_mesh(DIST_MESH, device_type="cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    want, want_aux = blocks.moe_ffn(p, x, cfg)
+    (got, got_aux), names, _ = traced_kernels(
+        lambda: moe_ffn_ep(p, x, cfg, mesh))
+    def settled(moe):
+        # one op on each output: it waits for a collective's result,
+        # which the timing would otherwise leave in flight
+        def call():
+            out, aux = moe()
+            return [t.to_local() * 1 if is_dtensor(t) else t * 1
+                    for t in [out, *leaves(aux)]]
+        return call
+
+    # Both timed alike: warm, outside the profiler, median of three.
+    tp_s, ep_s = (time_ms(settled(fn), reps=3) / 1e3 for fn in (
+        lambda: blocks.moe_ffn(p, x, cfg),
+        lambda: moe_ffn_ep(p, x, cfg, mesh)))
+    got = full(got)
+    err = rel_err(got, want)
+    aux_err = max(abs(float(want_aux[k]) - float(full(got_aux[k])))
+                  for k in want_aux)
+    nccl = sorted({n for n in names if "nccl" in n.lower()})
+    out = dict(arch=cfg.name, experts=E, d_model=D, d_expert=Fe,
+               tokens=MOE_EP_BATCH * MOE_EP_SEQ, capacity_factor=MOE_EP_CF,
+               expert_gb=sum(p[k].numel() * 4
+                             for k in ("w_gate", "w_up", "w_down")) / 1e9,
+               rel_err=err, rel_bound=MOE_EP_REL_BOUND, aux_err=aux_err,
+               tp_s=tp_s, ep_s=ep_s, nccl_kernels=nccl,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               card=card())
+    assert err <= MOE_EP_REL_BOUND and aux_err <= 1e-6, out
+    assert nccl, f"no NCCL kernel in the EP trace: {sorted(set(names))}"
+    return out
+
+
+def run_dryrun(train_median_s: float) -> dict:
+    """Phase 11, dryrun (on the host: ``meta`` tensors and the ``fake``
+    backend, after the NCCL group is gone): first the train phase's step
+    share of the card's bf16 peak, 6·N·D (``model_flops_for``) of the
+    train path's batch over its median step (no attention FLOPs, no
+    remat); then ``dryrun.run_cell`` of DRYRUN_CELL on the 16x16 mesh:
+    per-device FLOPs, state bytes (equal to DRYRUN_STATE_BYTES, the CPU
+    test's pinned figure), collective bytes by kind, and the compute,
+    memory and collective seconds with the bottleneck. No kernel may
+    launch."""
+    from repro_torch.launch import dryrun, roofline
+    cfg = get_arch(TRAIN_ARCH)
+    shape = ShapeConfig("train", seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, kind="train")
+    model_flops = roofline.model_flops_for(cfg, shape,
+                                           cfg.active_param_count())
+    say(phase="train_peak_share", arch=cfg.name, model_flops=model_flops,
+        median_step_s=train_median_s,
+        share=model_flops / train_median_s / roofline.PEAK_FLOPS,
+        peak_flops=roofline.PEAK_FLOPS, card=card())
+    zero_launches()
+    rec = dryrun.run_cell(*DRYRUN_CELL)
+    launches = {name: lib.launches for name, lib in LIBS.items()}
+    assert not any(launches.values()), launches
+    assert rec["state_bytes_per_device"] == DRYRUN_STATE_BYTES, rec
+    rec["launches"] = launches
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3854,9 +4184,29 @@ def run(dev) -> None:
         v = run_path()
         say(phase="slice", path=path, seconds=time.perf_counter() - t0, **v)
         launches[path] = v["launches"]
+        if path == "train":
+            train_median_s = v["median_step_s"]
         del v
         gc.collect()
         torch.cuda.empty_cache()
+    with one_rank_group(dev):
+        for path, run_path in (("distributed", run_distributed),
+                               ("moe_ep", run_moe_ep)):
+            zero_launches()
+            t0 = time.perf_counter()
+            v = run_path(dev)
+            v.setdefault("launches",
+                         {n: lib.launches for n, lib in LIBS.items()})
+            say(phase="slice", path=path, seconds=time.perf_counter() - t0,
+                **v)
+            launches[path] = v["launches"]
+            del v
+            gc.collect()
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    v = run_dryrun(train_median_s)
+    say(phase="slice", path="dryrun", seconds=time.perf_counter() - t0, **v)
+    launches["dryrun"] = v["launches"]
 
     kernels = []
     for name in LIBS:

@@ -17,8 +17,12 @@ a checkpoint written by either package loads in the other bit for bit:
   checkpoints.
 
 Trees are nested dicts, lists and tuples of tensors. ``load_checkpoint``
-places each leaf on the device of the target tree's leaf. Restoring onto
-a device mesh comes with the mesh (ROADMAP A9).
+places each leaf on the device of the target tree's leaf, or, with
+``mesh`` and ``specs``, as a DTensor laid out by its spec: loading onto
+another mesh than the one that saved re-shards each leaf (elastic
+restart). A tree of DTensors is saved as its global values, gathered on
+every rank and written by rank 0 of the process group, so the files are
+the same whatever mesh wrote them.
 """
 
 from __future__ import annotations
@@ -93,20 +97,35 @@ def _unflatten(tree, values):
     return next(values)
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _host_copy(v) -> torch.Tensor:
+    """A leaf's global value on the host (a DTensor gathered first)."""
+    from repro_torch.models.sharding import full
+    return full(torch.as_tensor(v).detach()).to("cpu", copy=True)
+
+
 def save_checkpoint(directory: str, step: int, tree: Any,
                     *, blocking: bool = True) -> threading.Thread:
     """Write ``tree`` under ``directory/step_<step>``; atomic via rename.
     The leaves are copied to host memory before this returns, so the
     caller may change them at once; with ``blocking=False`` the files are
     written on the returned thread."""
+    leaves = {k: _host_copy(v) for k, v in _flatten_with_paths(tree).items()}
+    if _rank() != 0:
+        t = threading.Thread(target=lambda: None)
+        t.start()
+        if blocking:
+            _barrier()
+        return t
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"step_{step}.tmp")
     final = os.path.join(directory, f"step_{step}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
-
-    leaves = {k: torch.as_tensor(v).detach().to("cpu", copy=True)
-              for k, v in _flatten_with_paths(tree).items()}
 
     def write():
         os.makedirs(tmp, exist_ok=True)
@@ -127,7 +146,16 @@ def save_checkpoint(directory: str, step: int, tree: Any,
     t.start()
     if blocking:
         t.join()
+        _barrier()
     return t
+
+
+def _barrier() -> None:
+    """Every rank waits until rank 0 has written (nothing off a process
+    group)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -144,11 +172,14 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def load_checkpoint(directory: str, step: int, target_tree: Any) -> Any:
+def load_checkpoint(directory: str, step: int, target_tree: Any, *,
+                    mesh=None, specs=None) -> Any:
     """Restore into the structure of ``target_tree``: each leaf in the
     dtype the manifest records, on the device of the target's leaf (the
-    CPU where the target's leaf is no tensor). Raises ``ValueError`` if a
-    leaf of the target is missing."""
+    CPU where the target's leaf is no tensor). With ``mesh`` and
+    ``specs`` (a tree of specs like the target's) each leaf is read whole
+    by every rank and kept as its shard of a DTensor laid out by its spec.
+    Raises ``ValueError`` if a leaf of the target is missing."""
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -158,14 +189,42 @@ def load_checkpoint(directory: str, step: int, target_tree: Any) -> Any:
     if missing:
         raise ValueError(f"checkpoint missing leaves: {missing[:5]} ...")
 
+    spec_leaves = {}
+    if mesh is not None and specs is not None:
+        from repro_torch.models.sharding import Spec
+        spec_leaves = _flatten_with_paths(_specs_as_leaves(specs, Spec))
+
     def load(key, target):
         meta = manifest["leaves"][key]
         t = _decode(np.load(os.path.join(path, meta["file"])), meta["dtype"])
+        if key in spec_leaves:
+            from repro_torch.models.sharding import distribute
+            return distribute(t.to(mesh.device_type), mesh,
+                              spec_leaves[key].spec)
         device = target.device if isinstance(target, torch.Tensor) else "cpu"
         return t.to(device)
 
     return _unflatten(target_tree, iter([load(k, t)
                                          for k, t in targets.items()]))
+
+
+@dataclasses.dataclass(frozen=True)
+class _SpecLeaf:
+    spec: tuple
+
+
+def _specs_as_leaves(specs, spec_type):
+    """``specs`` with each spec wrapped, so that ``_flatten_with_paths``
+    stops at it (a spec is itself a tuple)."""
+    if isinstance(specs, spec_type):
+        return _SpecLeaf(specs)
+    if isinstance(specs, dict):
+        return {k: _specs_as_leaves(v, spec_type) for k, v in specs.items()}
+    if isinstance(specs, tuple) and hasattr(specs, "_fields"):
+        return type(specs)(*(_specs_as_leaves(v, spec_type) for v in specs))
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(_specs_as_leaves(v, spec_type) for v in specs)
+    return specs
 
 
 @dataclasses.dataclass
@@ -191,6 +250,7 @@ class CheckpointManager:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+            _barrier()
         self._gc()
 
     def _gc(self) -> None:
@@ -203,10 +263,11 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s}"),
                           ignore_errors=True)
 
-    def restore_latest(self, target_tree: Any):
+    def restore_latest(self, target_tree: Any, *, mesh=None, specs=None):
         """(step, tree) of the latest complete checkpoint, or (None,
-        None)."""
+        None); onto ``mesh`` laid out by ``specs`` when given."""
         step = latest_step(self.directory)
         if step is None:
             return None, None
-        return step, load_checkpoint(self.directory, step, target_tree)
+        return step, load_checkpoint(self.directory, step, target_tree,
+                                     mesh=mesh, specs=specs)

@@ -7,8 +7,8 @@ exactly the batch it stopped on), drawn from the same ``SeedSequence``
 triples in the same order, and the pinned serving goldens replay the
 arrival draws bit for bit. Token streams are Zipf-distributed; audio and
 vision frontends get Gaussian frame / patch embeddings (the frontends
-themselves are stubs). The reference's ``batch_specs`` builds sharding
-specs and comes with the mesh (ROADMAP A9).
+themselves are stubs). ``batch_specs`` gives a training batch's
+``meta`` stand-ins and the specs that lay it out on a mesh.
 """
 
 from __future__ import annotations
@@ -61,6 +61,38 @@ def make_batch(cfg: ArchConfig, shape: ShapeConfig, *, step: int,
         out["tokens"] = toks[:, :-1]
         out["labels"] = toks[:, 1:]
     return out
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeConfig, rules, *,
+                batch_override: int | None = None):
+    """``meta`` tensors + specs for a training batch — the dry run's
+    inputs for train cells (frames and patches bf16, ids int32)."""
+    import torch
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    bspec = rules.spec("batch", "seq")
+    b3 = rules.spec("batch", "seq", None)
+    shapes, specs = {}, {}
+    if cfg.modality == "audio":
+        shapes["frames"] = meta((B, S, cfg.frontend_dim), torch.bfloat16)
+        shapes["labels"] = meta((B, S), torch.int32)
+        specs = {"frames": b3, "labels": bspec}
+    elif cfg.modality == "vision_text":
+        st = S - cfg.num_vision_tokens
+        shapes["vision_embeds"] = meta((B, cfg.num_vision_tokens,
+                                        cfg.frontend_dim), torch.bfloat16)
+        shapes["tokens"] = meta((B, st), torch.int32)
+        shapes["labels"] = meta((B, st), torch.int32)
+        specs = {"vision_embeds": b3, "tokens": bspec, "labels": bspec}
+    else:
+        shapes["tokens"] = meta((B, S), torch.int32)
+        shapes["labels"] = meta((B, S), torch.int32)
+        specs = {"tokens": bspec, "labels": bspec}
+    return shapes, specs
 
 
 @dataclasses.dataclass

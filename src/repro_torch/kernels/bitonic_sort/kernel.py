@@ -107,7 +107,9 @@ def bitonic_sort_batched(keys: torch.Tensor, vals: torch.Tensor):
 
     Both inputs are contiguous int32 tensors of one shape on one device,
     and N is a power of two >= 2. Anything else raises ``ValueError``. The
-    kernel's launches are ``stage_plan(N, default_chunk(N))``.
+    kernel's launches are ``stage_plan(N, default_chunk(N))``. CPU tensors
+    take the plain version; ``meta`` tensors (the dry run's, which hold no
+    data) get the results' shapes from one stable ``torch.sort``.
     """
     if keys.dtype != torch.int32 or vals.dtype != torch.int32:
         raise ValueError(f"keys and vals must be int32, got {keys.dtype} "
@@ -122,8 +124,13 @@ def bitonic_sort_batched(keys: torch.Tensor, vals: torch.Tensor):
         raise ValueError(f"keys on {keys.device}, vals on {vals.device}")
     if not (keys.is_contiguous() and vals.is_contiguous()):
         raise ValueError("keys and vals must be contiguous")
-    if keys.device.type not in ("cpu", "cuda"):
+    if keys.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {keys.device}")
+    if keys.device.type == "meta":
+        # shapes only: one stable sort stands in for the network's
+        # log2(N)^2 / 2 stages, which hold no FLOPs for the dry run to count
+        skeys, perm = torch.sort(keys, dim=-1, stable=True)
+        return skeys, perm.to(torch.int32), torch.empty_like(vals)
     if keys.device.type == "cpu":
         ids = torch.arange(n, dtype=torch.int32).expand(g, n).contiguous()
         return sort_network(keys, ids, vals)

@@ -134,7 +134,7 @@ def _check(q, k, v, window) -> None:
         raise ValueError(f"window {window} must be None or >= 1")
     if not q.device == k.device == v.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {q.device}")
 
 
@@ -190,9 +190,9 @@ class FlashAttention(torch.autograd.Function):
 
 def _forward(q, k, v, *, causal, window, q_block, kv_block,
              out_dtype) -> torch.Tensor:
-    """The forward of checked inputs: the plain version for CPU tensors,
-    else the kernel of q's dtype."""
-    if q.device.type == "cpu":
+    """The forward of checked inputs: the plain version for CPU and
+    ``meta`` tensors, else the kernel of q's dtype."""
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_block=q_block, kv_block=kv_block,
                                      out_dtype=out_dtype)

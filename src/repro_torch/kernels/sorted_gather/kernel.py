@@ -32,7 +32,7 @@ def check_row_indices(idx: torch.Tensor, n_rows: int) -> None:
     ``jnp.take`` would instead fill rows past the end with NaN and wrap
     negative indices; the port's contract is in-range indices."""
     check_index_kind(idx)
-    if idx.numel():
+    if idx.numel() and idx.device.type != "meta":   # meta holds no ids
         lo, hi = torch.stack(torch.aminmax(idx)).tolist()
         if lo < 0 or hi >= n_rows:
             raise ValueError(f"row index range [{lo}, {hi}] outside "
@@ -47,6 +47,7 @@ def gather_rows_plain(table: torch.Tensor,
 def gather_rows(table: torch.Tensor, sorted_idx: torch.Tensor) -> torch.Tensor:
     """Gather ``table[sorted_idx]`` from a contiguous 2-D table; callers
     pass sorted indices for locality (unsorted input is still correct).
+    CPU and ``meta`` tensors take the plain version.
     Raises ``ValueError`` on an index outside ``[0, R)``, a device
     mismatch or a non-contiguous table."""
     if table.ndim != 2 or not table.is_contiguous():
@@ -54,11 +55,11 @@ def gather_rows(table: torch.Tensor, sorted_idx: torch.Tensor) -> torch.Tensor:
     if sorted_idx.device != table.device:
         raise ValueError(f"indices on {sorted_idx.device}, table on "
                          f"{table.device}")
-    if table.device.type not in ("cpu", "cuda"):
+    if table.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {table.device}")
     check_row_indices(sorted_idx, table.shape[0])
     n = sorted_idx.shape[0]
-    if table.device.type == "cpu":
+    if table.device.type in ("cpu", "meta"):
         return gather_rows_plain(table, sorted_idx)
     if n >= 1 << 31:
         raise ValueError(f"{n} indices exceed the kernel's grid")

@@ -162,6 +162,7 @@ def scatter_rows(table: torch.Tensor, sorted_idx: torch.Tensor,
     float64 and int32 tables and values, in any pair: each value is cast
     to ``promote_types(float32, table.dtype)``, summed there and rounded
     once to the table's dtype. Anything else raises ``ValueError``.
+    ``meta`` tensors (the dry run's) give the result's shape only.
     """
     if mode not in ("set", "add"):
         raise ValueError(f"mode must be 'set' or 'add', got {mode!r}")
@@ -180,8 +181,12 @@ def scatter_rows(table: torch.Tensor, sorted_idx: torch.Tensor,
                          f"{values.dtype}")
     if not sorted_idx.device == values.device == table.device:
         raise ValueError("table, indices and values must share a device")
-    if table.device.type not in ("cpu", "cuda"):
+    if table.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {table.device}")
+    if table.device.type == "meta":
+        # no ids to fold runs by: an index_add of the batch, whose shape
+        # and traffic the dry run counts
+        return table.index_add(0, sorted_idx, values.to(table.dtype))
     if table.device.type == "cpu":
         check_row_indices(sorted_idx, table.shape[0])
         if n > 1 and bool((sorted_idx[1:] < sorted_idx[:-1]).any()):

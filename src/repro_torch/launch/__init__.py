@@ -1,5 +1,5 @@
-"""Launch layer: the train and serve drivers and the Chrome-trace export of
-a lifecycle trace (dry-run and roofline come later).
+"""Launch layer: the train and serve drivers, meshes, the dry run with its
+roofline and report, and the Chrome-trace export of a lifecycle trace.
 
 Counterpart of ``repro.launch``. ``Trainer``, ``TrainerConfig`` and
 ``make_train_step`` are ``repro_torch.launch.train``'s, loaded on first

@@ -16,6 +16,12 @@ reports modeled p50/p95/p99 memory sojourn per tenant next to the
 functional outputs (``model_memory``); with ``slo_cycles`` also each
 tenant's SLO attainment and the attribution component to blame.
 
+On a device mesh (``Server(arch, mesh=mesh)``) the weights are DTensors
+laid out by ``param_specs`` under the serving rules
+(``models.sharding.serving_weight_overrides`` for the scheduler's batch
+size), the cache by ``cache_specs``, and each prompt batch's rows split
+over the data axes; a batch must split evenly over them.
+
 Demo: ``python -m repro_torch.launch.serve --arch yi-34b --smoke
 --device cpu`` (the default device is the GPU).
 """
@@ -35,6 +41,7 @@ from repro_torch.core.config import MemoryControllerConfig, SchedulerConfig
 from repro_torch.core.controller import MemoryController
 from repro_torch.core.scheduler import form_batches
 from repro_torch.models.lm import build_lm
+from repro_torch.models.sharding import full, serving_weight_overrides
 
 #: KV page granularity of the modeled access stream (bytes per token row)
 KV_PAGE_BYTES = 256
@@ -82,7 +89,8 @@ class Server:
     """Batched prefill + lockstep decode with scheduler-based admission.
 
     Params are drawn on ``device`` from ``torch.Generator(device)`` seeded
-    0. ``mem``, ``arb_policy``, ``arb_weights`` and ``slo_cycles`` set the
+    0 (on a ``mesh``, the same values, each rank keeping its shards).
+    ``mem``, ``arb_policy``, ``arb_weights`` and ``slo_cycles`` set the
     modeled-memory replay (``model_memory``); ``decode_interval_cycles``
     spaces ``kv_trace``.
     """
@@ -98,9 +106,15 @@ class Server:
         self.cfg = get_arch(arch, smoke=smoke)
         if self.cfg.family == "encoder":
             raise ValueError("encoder-only architectures do not decode")
-        self.device = torch.device(device)
-        self.lm = build_lm(self.cfg, mesh, device=self.device)
+        self.device = torch.device(mesh.device_type if mesh is not None
+                                   else device)
         self.sched = sched or SchedulerConfig(batch_size=8, timeout_cycles=32)
+        self.lm = build_lm(self.cfg, mesh, global_batch=self.sched.batch_size,
+                           device=self.device)
+        overrides = serving_weight_overrides(self.cfg, self.sched.batch_size,
+                                             mesh)
+        if overrides:
+            self.lm.rules = dataclasses.replace(self.lm.rules, **overrides)
         self.controller = MemoryController(mem or MemoryControllerConfig(),
                                            device=self.device)
         self.arb_policy = arb_policy
@@ -137,7 +151,7 @@ class Server:
                 self.device)}, max_len)
         stats.prefill_tokens += int(prompts.size)
         outs = [[] for _ in batch]
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        tok = torch.argmax(full(logits), dim=-1).to(torch.int32)
         for step in range(max_new):
             host = tok.tolist()          # the step's one host sync
             if step == 0:
@@ -148,7 +162,7 @@ class Server:
                     outs[i].append(host[i])
             logits, cache = self.lm.decode_step(self.params, tok, cache, cur)
             cur += 1
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            tok = torch.argmax(full(logits), dim=-1).to(torch.int32)
             stats.decode_steps += 1
         if max_new:
             tok.tolist()

@@ -9,8 +9,11 @@ float32 stream). The MoE dispatch is a literal instance
 of the paper's memory scheduler: token→expert assignments are the request
 stream, the expert id is the "DRAM row", capacity buffers are the DMA
 staging buffers, and the dispatch reorders requests so all traffic to one
-expert is serviced as a bulk transfer (``moe_ffn``). The reference's
-``shard`` calls are identities on one device and are dropped. Caches are
+expert is serviced as a bulk transfer (``moe_ffn``). On a device mesh
+(DTensor inputs, ``rules`` and ``mesh`` given) each of the reference's
+``shard`` calls is a ``redistribute`` at the same place, and the blocks
+with no tensor-parallel layout of their own run on each rank's batch
+rows (``on_batch_shards``); off a mesh they are identities. Caches are
 mutated in place by ``attn_decode`` (the KV append is a slot copy,
 ``layers.mc_kv_append``); ``mamba_decode`` returns a new state, which the
 LM copies into its cache.
@@ -18,17 +21,22 @@ LM copies into its cache.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 
+from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import capture as capture_mod
 from repro_torch.models import layers
 from repro_torch.models.params import mamba_dims
+from repro_torch.models.sharding import (Rules, Spec, is_dtensor, mesh_shape,
+                                         shard)
 
 
 class AttnCache(NamedTuple):
@@ -69,23 +77,37 @@ class MambaCache(NamedTuple):
 # Attention block
 # ---------------------------------------------------------------------------
 
-def attn_forward(p, x, cfg: ArchConfig, positions: torch.Tensor):
+def attn_forward(p, x, cfg: ArchConfig, positions: torch.Tensor,
+                 rules: Rules = None, mesh=None):
     """Full-sequence attention (train / prefill). Returns (out, kv)."""
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xn = layers.rms_norm(x, p["ln"])
-    q = layers.mm(xn, p["wq"]).reshape(B, S, h, hd)
-    k = layers.mm(xn, p["wk"]).reshape(B, S, kv, hd)
-    v = layers.mm(xn, p["wv"]).reshape(B, S, kv, hd)
+
+    def heads(w, n, name):
+        # on a mesh the product's columns are split over ``model`` (w_tp)
+        # whatever the head count; laid out by whole heads first (or
+        # replicated, where they do not divide the axis), they reshape
+        y = shard(layers.mm(xn, w), rules, "batch", "seq", name, mesh=mesh)
+        return y.reshape(B, S, n, hd)
+
+    q = heads(p["wq"], h, "heads")
+    k = heads(p["wk"], kv, "kv_heads")
+    v = heads(p["wv"], kv, "kv_heads")
     q = layers.rope(q, positions, cfg.rope_theta)
     k = layers.rope(k, positions, cfg.rope_theta)
+    q = shard(q, rules, "batch", "seq", "heads", None, mesh=mesh)
+    k = shard(k, rules, "batch", "seq", "kv_heads", None, mesh=mesh)
+    v = shard(v, rules, "batch", "seq", "kv_heads", None, mesh=mesh)
     out = layers.flash_attention(q, k, v, causal=cfg.causal,
                                  window=cfg.attn_window,
                                  q_block=cfg.attn_q_block,
                                  kv_block=cfg.attn_kv_block,
-                                 use_kernels=cfg.use_kernels)
+                                 use_kernels=cfg.use_kernels,
+                                 rules=rules, mesh=mesh)
     out = layers.mm(out.reshape(B, S, h * hd), p["wo"])
-    return out, AttnCache(k=k, v=v)
+    return shard(out, rules, "batch", "seq", "embed", mesh=mesh), \
+        AttnCache(k=k, v=v)
 
 
 def attn_prefill_cache(kv: AttnCache, cfg: ArchConfig, seq_len: int,
@@ -111,7 +133,8 @@ def attn_prefill_cache(kv: AttnCache, cfg: ArchConfig, seq_len: int,
     return AttnCache(k, v)
 
 
-def attn_decode(p, x, cache, cur_len: int, cfg: ArchConfig):
+def attn_decode(p, x, cache, cur_len: int, cfg: ArchConfig,
+                rules: Rules = None, mesh=None):
     """One-token attention against the cache; returns (out, cache).
 
     ``cur_len`` is the number of tokens already in the cache; the new token
@@ -147,11 +170,26 @@ def attn_decode(p, x, cache, cur_len: int, cfg: ArchConfig):
         full_v = dequantize_kv(cache.v, cache.v_scale, x.dtype)
     else:
         cache = AttnCache(append(cache.k, k), append(cache.v, v))
-        full_k, full_v = cache.k, cache.v
+        full_k = shard(cache.k, rules, "batch", "kv_seq", None, None,
+                       mesh=mesh)
+        full_v = shard(cache.v, rules, "batch", "kv_seq", None, None,
+                       mesh=mesh)
 
     valid = (torch.arange(C, device=x.device) < min(cur_len + 1, C)).expand(
         B, C)
-    out = layers.decode_attention(q[:, 0], full_k, full_v, valid)
+    if mesh is not None and is_dtensor(full_k):
+        # each rank attends over the whole cache of its batch rows: the
+        # kv_seq shards are all-gathered, not a softmax split over them
+        b = batch_entry(rules, mesh, B)
+        out = compat.shard_map(
+            layers.decode_attention, mesh=mesh,
+            in_specs=(rules.spec(b, None, None),
+                      rules.spec(b, None, None, None),
+                      rules.spec(b, None, None, None), rules.spec(b, None)),
+            out_specs=rules.spec(b, None, None))(q[:, 0], full_k, full_v,
+                                                 valid)
+    else:
+        out = layers.decode_attention(q[:, 0], full_k, full_v, valid)
     return out.reshape(B, h * hd) @ p["wo"], cache
 
 
@@ -161,9 +199,12 @@ def attn_decode(p, x, cache, cur_len: int, cfg: ArchConfig):
 # Dense / shared MLP
 # ---------------------------------------------------------------------------
 
-def mlp_forward(p, x):
+def mlp_forward(p, x, rules: Rules = None, mesh=None):
     xn = layers.rms_norm(x, p["ln"])
-    return layers.swiglu(xn, p["w_gate"], p["w_up"], p["w_down"])
+    h = F.silu(layers.mm(xn, p["w_gate"])) * layers.mm(xn, p["w_up"])
+    h = shard(h, rules, "batch", "seq", "heads", mesh=mesh)
+    return shard(layers.mm(h, p["w_down"]), rules, "batch", "seq", "embed",
+                 mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -281,26 +322,30 @@ def moe_slots(top_e: torch.Tensor, num_groups: int, num_experts: int,
     return pos_in_e, keep, slot
 
 
-def moe_aux(logits, probs, top_e, cfg: ArchConfig):
+def moe_aux(logits, probs, top_e, cfg: ArchConfig, mean=None):
     """Switch/ST-MoE auxiliary losses: load balance (E·Σ mean prob ·
     assignment share) and router z. The per-expert assignment counts are
     an integer sum (float atomics would change the bits from call to call
-    on CUDA, and ``bincount`` there syncs with the host)."""
+    on CUDA, and ``bincount`` there syncs with the host). ``mean`` turns
+    a shard's means into the global batch's (the ``pmean`` over the data
+    shards of equal size; None on one device)."""
     m = cfg.moe
+    mean = mean or (lambda t: t)
     T = probs.shape[0]
-    me = probs.mean(0)                                     # (E,)
+    me = mean(probs.mean(0))                               # (E,)
     e = top_e.reshape(-1)
     counts = torch.zeros(m.num_experts, dtype=torch.int64,
                          device=e.device).scatter_add_(0, e,
                                                        torch.ones_like(e))
-    ce = counts.float() / (T * m.top_k)
+    ce = mean(counts.float() / (T * m.top_k))
     return {"load_balance": m.num_experts * torch.sum(me * ce),
-            "router_z": m.router_z_coef * torch.mean(
-                torch.logsumexp(logits, dim=-1) ** 2)}
+            "router_z": m.router_z_coef * mean(torch.mean(
+                torch.logsumexp(logits, dim=-1) ** 2))}
 
 
 def moe_ffn(p, x, cfg: ArchConfig, *, no_drop: bool = False,
-            dispatch: str = "sort", num_groups: int = 1):
+            dispatch: str = "sort", num_groups: int = 1,
+            rules: Rules = None, mesh=None):
     """Token-choice top-k MoE with capacity buffers.
 
     Scheduler mapping (paper Fig. 2):
@@ -318,13 +363,66 @@ def moe_ffn(p, x, cfg: ArchConfig, *, no_drop: bool = False,
     (GShard local groups); capacity and drops are per group, and
     ``num_groups=1`` is the global scheduler. A group count that does not
     divide the tokens falls back to 1. Returns (out, aux).
+
+    On a ``mesh`` with ``num_groups`` the batch's data shards (the LM's
+    ``_moe_groups``), group ``g`` is the rows of data shard ``g``, so each
+    rank dispatches its own rows as one group, against whole expert
+    weights, with the aux losses' means taken over the data shards; with
+    one group every rank dispatches the whole batch (``on_batch_shards``).
+    The reference's layout constraints on the dispatch buffers have no
+    counterpart: each rank's buffers are its own tensors.
     """
+    if mesh is not None and is_dtensor(x):
+        batch = "batch" if num_groups > 1 else None
+
+        def local(p, x):
+            mean = (None if batch is None else functools.partial(
+                compat.pmean, axes=_batch_axes(rules), mesh=mesh))
+            return _moe_ffn_local(p, x, cfg, no_drop, dispatch, 1, mean)
+
+        return on_batch_shards(local, p, x, rules=rules, mesh=mesh,
+                               batch=batch, out_ndims=(3, 0, 0))
+    return _moe_ffn_local(p, x, cfg, no_drop, dispatch, num_groups)
+
+
+def _moe_ffn_local(p, x, cfg: ArchConfig, no_drop: bool, dispatch: str,
+                   num_groups: int, mean=None):
     B, S, D = x.shape
     flat, logits, probs, top_p, top_e = moe_route(p, x, cfg)
     capture_moe_dispatch(top_e, B * S, D, x.element_size())
     y = moe_experts(p, flat, top_p, top_e, cfg, no_drop=no_drop,
                     dispatch=dispatch, num_groups=num_groups)
-    return y.reshape(B, S, D), moe_aux(logits, probs, top_e, cfg)
+    return y.reshape(B, S, D), moe_aux(logits, probs, top_e, cfg, mean)
+
+
+def _batch_axes(rules: Rules) -> tuple:
+    b = rules.batch
+    return () if b is None else ((b,) if isinstance(b, str) else tuple(b))
+
+
+def batch_entry(rules: Rules, mesh, n: int):
+    """``"batch"`` where ``n`` rows split evenly over the batch axes, else
+    None (every rank takes the whole batch)."""
+    shape = mesh_shape(mesh)
+    dp = math.prod(shape[a] for a in _batch_axes(rules))
+    return "batch" if n % dp == 0 else None
+
+
+def on_batch_shards(fn, p, *xs, rules: Rules, mesh, batch="batch",
+                    out_ndims=()):
+    """``fn(p, *xs)`` on each rank's batch rows (``batch`` None: the
+    whole batch) against whole weights ``p``, gathered at use (ZeRO-3).
+    The blocks with no kernel and no tensor-parallel layout of their own
+    (Mamba, the MoE's token-choice dispatch) run so on a mesh. ``xs`` and
+    the outputs (a flat tree, one entry per ``out_ndims``: the dims of
+    each; 0 for a replicated scalar) lead with their batch dim."""
+    def spec(nd):
+        return rules.spec(batch, *(None,) * (nd - 1)) if nd else Spec()
+
+    x_specs = tuple(pytree.tree_map(lambda t: spec(t.ndim), x) for x in xs)
+    outs = [spec(n) for n in out_ndims]
+    return compat.shard_map(fn, mesh=mesh, in_specs=(Spec(),) + x_specs,
+                            out_specs=outs)(p, *xs)
 
 
 def moe_experts(p, flat, top_p, top_e, cfg: ArchConfig, *,
@@ -412,14 +510,20 @@ def _mamba_out(p, y, z, dtype):
     return layers.rms_norm(y.to(dtype), p["gated_ln"]) @ p["wo"]
 
 
-def mamba_forward(p, x, cfg: ArchConfig):
+def mamba_forward(p, x, cfg: ArchConfig, rules: Rules = None, mesh=None):
     """Chunked SSD forward (Mamba-2, arXiv:2405.21060 §6).
 
     Intra-chunk terms are computed with dense (quadratic-in-chunk)
     products, while inter-chunk terms flow through a loop over chunks
     carrying the (B, H, P, N) float32 state (the reference's ``lax.scan``).
-    Returns (out, MambaCache) with the final state and conv taps.
+    Returns (out, MambaCache) with the final state and conv taps. On a
+    ``mesh`` each rank runs its batch rows (``on_batch_shards``).
     """
+    if mesh is not None and is_dtensor(x):
+        return on_batch_shards(
+            lambda p, x: mamba_forward(p, x, cfg), p, x, rules=rules,
+            mesh=mesh, batch=batch_entry(rules, mesh, x.shape[0]),
+            out_ndims=(3, 3, 3, 3, 4))
     B, S, D = x.shape
     d_in, H, P, N = mamba_dims(cfg)
     L = min(cfg.ssm.chunk, S)
@@ -470,8 +574,16 @@ def mamba_forward(p, x, cfg: ArchConfig):
                            ssm=h)
 
 
-def mamba_decode(p, x, cache: MambaCache, cfg: ArchConfig):
-    """O(1) recurrent step. x: (B, D). Returns (out, new MambaCache)."""
+def mamba_decode(p, x, cache: MambaCache, cfg: ArchConfig,
+                 rules: Rules = None, mesh=None):
+    """O(1) recurrent step. x: (B, D). Returns (out, new MambaCache). On
+    a ``mesh`` each rank steps its batch rows (``on_batch_shards``)."""
+    if mesh is not None and is_dtensor(x):
+        return on_batch_shards(
+            lambda p, x, c: mamba_decode(p, x, c, cfg), p, x, cache,
+            rules=rules, mesh=mesh,
+            batch=batch_entry(rules, mesh, x.shape[0]),
+            out_ndims=(2, 3, 3, 3, 4))
     B, D = x.shape
     d_in, H, P, N = mamba_dims(cfg)
     cap = capture_mod.active_capture()

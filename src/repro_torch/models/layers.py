@@ -26,12 +26,14 @@ only a hook that records copies ids from the card to the host.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import compat
 from repro_torch.core import capture as capture_mod
 from repro_torch.core import scheduler
 from repro_torch.core.config import MemoryControllerConfig
@@ -39,6 +41,7 @@ from repro_torch.core.controller import MemoryController
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.sorted_gather import kernel as sg_kernel
 from repro_torch.kernels.sorted_scatter import ops as ss_ops
+from repro_torch.models.sharding import Rules, is_dtensor
 
 NEG = fa_kernel.NEG
 
@@ -94,11 +97,25 @@ def flash_attention(
     q_block: int = 512,
     kv_block: int = 1024,
     use_kernels: bool = True,
+    rules: Rules | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Online-softmax attention; O(S·block) memory instead of O(S²).
 
     ``q_block`` / ``kv_block`` tile the plain version; the result does not
-    depend on them beyond float32 summation order."""
+    depend on them beyond float32 summation order. On a ``mesh`` (DTensor
+    inputs) each rank runs the kernel on its local shard: its batch rows
+    and, where ``rules.heads`` shards heads over ``model``, its heads,
+    with the KV heads those heads read (``_local_attention``)."""
+    if mesh is not None and is_dtensor(q):
+        qs = rules.spec("batch", "seq", "heads", None)
+        kvs = rules.spec("batch", "seq", "kv_heads", None)
+        fn = functools.partial(
+            _local_attention, causal=causal, window=window, q_block=q_block,
+            kv_block=kv_block, use_kernels=use_kernels,
+            n_heads=q.shape[2], mesh=mesh, rules=rules)
+        return compat.shard_map(fn, mesh=mesh, in_specs=(qs, kvs, kvs),
+                                out_specs=qs)(q, k, v)
     if use_kernels:
         return fa_kernel.flash_attention_fwd(q, k, v, causal=causal,
                                              window=window, q_block=q_block,
@@ -106,6 +123,26 @@ def flash_attention(
     return fa_kernel.flash_attention_plain(q, k, v, causal=causal,
                                            window=window, q_block=q_block,
                                            kv_block=kv_block)
+
+
+def _local_attention(q, k, v, *, n_heads: int, mesh, rules: Rules,
+                     **kw) -> torch.Tensor:
+    """One rank's attention on local shards. With heads sharded over
+    ``model`` and KV heads replicated (KV does not divide the axis), the
+    rank's heads ``[h0, h1)`` read KV heads ``[h0 // G, ceil(h1 / G))``
+    of the G-head groups: those are sliced out, so the kernel's own GQA
+    grouping of the local heads is the global one."""
+    H_loc = q.shape[2]
+    if H_loc < n_heads and rules.kv_heads is None:
+        G = n_heads // k.shape[2]
+        if (G % H_loc if H_loc <= G else H_loc % G):
+            raise ValueError(f"{H_loc} local heads of {n_heads} do not "
+                             f"split {k.shape[2]} KV heads into whole "
+                             f"groups")
+        h0 = compat.axis_index("model", mesh) * H_loc
+        k0, k1 = h0 // G, -(-(h0 + H_loc) // G)
+        k, v = k[:, :, k0:k1], v[:, :, k0:k1]
+    return flash_attention(q, k, v, **kw)
 
 
 def decode_attention(
@@ -157,7 +194,8 @@ def _capture_embed(op: str, table, tokens, rw: int) -> None:
 
 def mc_embed(table: torch.Tensor, tokens: torch.Tensor,
              mc: MemoryControllerConfig, *,
-             use_kernels: bool = True) -> torch.Tensor:
+             use_kernels: bool = True, rules: Rules | None = None,
+             mesh=None) -> torch.Tensor:
     """Embedding gather through the memory controller's scheduler.
 
     Requests are stable-sorted *per sequence* (axis -1) — each sequence is
@@ -169,7 +207,20 @@ def mc_embed(table: torch.Tensor, tokens: torch.Tensor,
     versions for CPU tensors, and the lookup's backward is the
     controller's embedding-gradient write (``EmbedLookup``). Value-identical
     to ``table[tokens]``.
+
+    On a ``mesh`` (a DTensor table, laid out ``(None, "w_tp")``: the
+    vocabulary replicated, ``d_model`` split over ``model``) each rank
+    sorts its own batch rows' ids and gathers whole rows of its own
+    columns; the result is laid out ``("batch", "seq", "w_tp")``, and
+    the table's gradient is summed over the batch shards.
     """
+    if mesh is not None and is_dtensor(table):
+        lead = ("batch", "seq")[:tokens.ndim]
+        fn = functools.partial(mc_embed, mc=mc, use_kernels=use_kernels)
+        return compat.shard_map(
+            fn, mesh=mesh,
+            in_specs=(rules.spec(None, "w_tp"), rules.spec(*lead)),
+            out_specs=rules.spec(*lead, "w_tp"))(table, tokens)
     _capture_embed("embed_gather", table, tokens, rw=0)
     d = table.shape[-1]
     if not mc.scheduler.enabled:
@@ -261,6 +312,8 @@ def mc_kv_append(buf: torch.Tensor, new: torch.Tensor, slot: int,
     bulk-write records (``kv_append_dma`` when the config's DMA engine
     owns the stream); it never affects stored values.
     """
+    if is_dtensor(buf):
+        return _kv_append_on_mesh(buf, new, slot, axis)
     cap = capture_mod.active_capture()
     if cap is not None:
         pages = int(buf.shape[axis])
@@ -271,4 +324,48 @@ def mc_kv_append(buf: torch.Tensor, new: torch.Tensor, slot: int,
         cap.record_slice(op, f"kv:{pages}x{page_bytes}", pages, page_bytes,
                          slot, n_new, rw=1)
     buf.narrow(axis, slot, new.shape[axis]).copy_(new)
+    return buf
+
+
+def _kv_append_on_mesh(buf, new, slot: int, axis: int):
+    """``mc_kv_append`` into a DTensor cache (no capture record). A
+    ``redistribute`` returns a new tensor, so a write into a resharded
+    view would be lost: instead each rank writes, in place, the part of
+    ``[slot, slot + n)`` that its own shard of ``axis`` holds (none,
+    where another rank owns it), with ``new`` laid out as ``buf`` but
+    replicated along ``axis``. Shards of ``axis`` must be even. Returns
+    ``buf``, which holds the write."""
+    from torch.distributed.tensor import Replicate, Shard
+    axis %= buf.ndim
+    place = tuple(buf.placements)
+    over = [i for i, p in enumerate(place)
+            if isinstance(p, Shard) and p.dim == axis]
+    new_place = tuple(Replicate() if i in over else p
+                      for i, p in enumerate(place))
+    parts = 1
+    index = 0
+    for i in over:                # major first, as DTensor shards a dim
+        index = index * buf.device_mesh.shape[i] + \
+            buf.device_mesh.get_local_rank(i)
+        parts *= buf.device_mesh.shape[i]
+    size = buf.shape[axis]
+    if size % parts:
+        raise ValueError(f"{size} slots do not split evenly over {parts} "
+                         f"shards")
+    lo = index * (size // parts)
+
+    def write(b, n):
+        a0, a1 = max(slot, lo), min(slot + n.shape[axis], lo + b.shape[axis])
+        if a0 < a1:
+            b.narrow(axis, a0 - lo, a1 - a0).copy_(
+                n.narrow(axis, a0 - slot, a1 - a0))
+        return b
+
+    from torch.distributed.tensor.experimental import local_map
+    if slot < 0 or slot + new.shape[axis] > size:
+        raise ValueError(f"slots [{slot}, {slot + new.shape[axis]}) past "
+                         f"the buffer's {size}")
+    local_map(write, out_placements=(place,), in_placements=(place, new_place),
+              device_mesh=buf.device_mesh, redistribute_inputs=True)(
+        buf, new)
     return buf

@@ -3,8 +3,10 @@
 Counterpart of ``repro.models.params``. Every parameter is declared once
 as a ``ParamDecl`` (shape + logical axes + initializer), for every family;
 ``init_params`` materializes the tree as a nested dict of tensors on a
-device. The logical axes are carried for the sharding slice
-(``param_specs`` and ``abstract_params`` come with it).
+device, or as DTensors on a device mesh; ``param_specs`` maps logical
+axes through the active ``Rules``, and ``abstract_params`` produces
+allocation-free stand-ins (``meta`` tensors) — tree-congruent because
+they traverse the same declarations.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.sharding import Rules, distribute
 
 # Elements drawn at a time by ``init_params``: a float32 draw of a whole
 # stacked leaf would need 4 bytes per element (35 GB for yi-34b's w_gate).
@@ -199,16 +202,42 @@ def _init_leaf(decl: ParamDecl, gen: torch.Generator, dtype, device):
     return out
 
 
+def _leaf_dtype(decl: ParamDecl, dtype):
+    return torch.float32 if decl.init in ("ssm_a", "dt_bias") else dtype
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device: str | torch.device = "cuda"):
+                device: str | torch.device = "cuda", *, mesh=None,
+                rules: Rules | None = None):
     """Normal(0, 1/fan_in) weights, ones/zeros norms, float32 ``ssm_a`` /
     ``dt_bias``, drawn from ``generator`` (a generator of ``device``) leaf
     by leaf in sorted-key order. The numbers differ from the reference's
     ``jax.random`` draws; ``repro_torch.convert.lm_params`` carries those
-    across."""
+    across. On a ``mesh`` every rank draws each whole leaf as one device
+    would and keeps its shard of it by ``param_specs(cfg, rules)``, one
+    leaf at a time, so the values equal the single-device init bit for
+    bit."""
     dtype = getattr(torch, cfg.param_dtype)
-    return map_tree(lambda d: _init_leaf(d, generator, dtype, device),
+    if mesh is None:
+        return map_tree(lambda d: _init_leaf(d, generator, dtype, device),
+                        model_decls(cfg))
+    return map_tree(lambda d: distribute(
+        _init_leaf(d, generator, dtype, device), mesh,
+        rules.spec(*d.logical)), model_decls(cfg))
+
+
+def abstract_params(cfg: ArchConfig):
+    """``meta`` tensors of every leaf's shape and dtype (float32 for
+    ``ssm_a`` and ``dt_bias``, as ``init_params`` makes them)."""
+    dtype = getattr(torch, cfg.param_dtype)
+    return map_tree(lambda d: torch.empty(d.shape, device="meta",
+                                          dtype=_leaf_dtype(d, dtype)),
                     model_decls(cfg))
+
+
+def param_specs(cfg: ArchConfig, rules: Rules):
+    """The spec of every leaf: its logical axes through ``rules``."""
+    return map_tree(lambda d: rules.spec(*d.logical), model_decls(cfg))
 
 
 def param_count_tree(cfg: ArchConfig) -> int:

@@ -7,7 +7,10 @@ update math runs in float32 whatever the parameter dtype, and each new
 parameter is rounded to its dtype once. Trees are nested dicts of tensors
 (a parameter tree, its gradients, the moments), walked in sorted key
 order (``models.params.map_tree``). The update is functional: it returns
-new trees and changes none of its arguments.
+new trees and changes none of its arguments. On a device mesh the leaves
+are DTensors and each moment keeps its parameter's layout
+(``opt_state_specs``); the update then runs on each rank's shards, and
+the global norm sums over all of them.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models.params import leaves, map_tree
+from repro_torch.models.sharding import Spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,14 +52,29 @@ def lr_schedule(step, cfg: OptimizerConfig) -> torch.Tensor:
 
 
 def init_opt_state(params) -> Dict[str, Any]:
-    """Zero float32 moments beside each parameter and step 0 (int32, on
-    the first parameter's device)."""
+    """Zero float32 moments beside each parameter (a DTensor parameter's
+    in its layout) and step 0 (int32, on the first parameter's device)."""
     device = leaves(params)[0].device
-    f32_like = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device)
+    f32_like = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return {"m": map_tree(f32_like, params),
             "v": map_tree(f32_like, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def abstract_opt_state(abstract_params) -> Dict[str, Any]:
+    """``meta`` stand-ins of ``init_opt_state``'s tree."""
+    f32_like = lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                     device="meta")
+    return {"m": map_tree(f32_like, abstract_params),
+            "v": map_tree(f32_like, abstract_params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def opt_state_specs(param_specs):
+    """Moments take their parameter's spec (ZeRO: optimizer memory
+    shrinks with both the data and the model axes); the step is
+    replicated."""
+    return {"m": param_specs, "v": param_specs, "step": Spec()}
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -5,11 +5,12 @@ across rescales so weight shardings and compiled kernels stay aligned with
 ICI neighborhoods. Capacity changes are absorbed by the data axis (and the
 pod axis in multi-pod jobs): lose a host → data axis shrinks to the largest
 multiple that fits, global batch per step is preserved by increasing the
-per-device batch or (if not divisible) by gradient accumulation.
+per-device batch or (if not divisible) by gradient accumulation. Restore
+is handled by the checkpoint layer (``load_checkpoint(..., mesh=,
+specs=)`` re-shards each leaf).
 
-Counterpart of ``repro.runtime.elastic``: the planner, in plain Python.
-``make_mesh_from_plan`` and restoring a checkpoint onto the new mesh come
-with the device mesh (ROADMAP A9).
+Counterpart of ``repro.runtime.elastic``: the planner in plain Python,
+and ``make_mesh_from_plan`` over ``init_device_mesh``.
 """
 
 from __future__ import annotations
@@ -71,3 +72,11 @@ def plan_rescale(old_shape: Tuple[int, ...], axis_names: Tuple[str, ...],
                        axis_names=names, grad_accum=grad_accum,
                        dropped_devices=available_devices - used)
 
+
+
+def make_mesh_from_plan(plan: RescalePlan, device_type: str = "cuda"):
+    """The ``DeviceMesh`` of ``plan``'s new shape and axis names over the
+    process group's first ranks (the group must be initialized)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    return make_test_mesh(plan.new_shape, plan.axis_names,
+                          device_type=device_type)

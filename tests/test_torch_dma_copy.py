@@ -171,3 +171,19 @@ def test_staged_copy_of_nothing():
     out = tkernel.staged_copy(dst, src, chunk_elems=128, channels=4)
     assert out is dst and out.shape == (0,)
     assert tkernel.LIB.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, "bfloat16"])
+def test_oracle_matches_the_reference_oracle(dtype, rng):
+    """``dma_copy_ref`` (a clone) against the reference's seven-line
+    oracle (``jnp.array(src, copy=True)``), and the op against both."""
+    from repro.kernels.dma_copy.ref import dma_copy_ref as jref
+    from repro_torch.kernels.dma_copy.ref import dma_copy_ref
+    x = rng.standard_normal((7, 33)).astype(np.float32)
+    x = jnp.asarray(x).astype(jnp.bfloat16) if dtype == "bfloat16" \
+        else jnp.asarray(x.astype(dtype))
+    t = convert.to_tensor(np.asarray(x), "cpu")
+    got = dma_copy_ref(t)
+    assert got.data_ptr() != t.data_ptr() and got.dtype == t.dtype
+    np.testing.assert_array_equal(_bits(got), _bits(jref(x)))
+    np.testing.assert_array_equal(_bits(tops.dma_copy(t)), _bits(got))

@@ -358,13 +358,19 @@ def test_embedding_grad_update_matches_reference():
 def test_other_families_raise_not_implemented(arch):
     """The hybrid, audio and vision architectures build like the others
     (their parity is in tests/test_torch_hybrid.py and
-    tests/test_torch_frontends.py); what still raises for them is what
-    raises for every family: a device mesh and expert parallelism."""
+    tests/test_torch_frontends.py), on one device and on a device mesh
+    (its rules from ``make_rules``; the mesh paths' parity is in
+    tests/test_torch_sharding.py and tests/test_torch_distributed.py);
+    expert parallelism without a mesh or an MoE to split raises, as in
+    the reference."""
+    from repro_torch.models.sharding import AbstractMesh, make_rules
     cfg = tget_arch(arch, smoke=True)
     assert tbuild_lm(cfg, device="cpu").cfg is cfg
-    with pytest.raises(NotImplementedError, match="A9"):
-        tbuild_lm(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    lm = tbuild_lm(cfg, mesh=mesh, device="cpu")
+    assert lm.mesh is mesh and lm.rules == make_rules(
+        mesh, num_kv_heads=cfg.num_kv_heads, num_heads=cfg.num_heads)
+    with pytest.raises(ValueError, match="needs a mesh"):
         tbuild_lm(cfg, moe_strategy="ep", device="cpu")
 
 
@@ -392,9 +398,21 @@ def test_build_lm_takes_every_registry_architecture(arch):
 
 @pytest.mark.parametrize("what", ["mesh", "ep"])
 def test_mesh_and_expert_parallel_raise_not_implemented(what):
+    """A mesh builds (the reference's rules); expert parallelism takes a
+    mesh and an MoE whose experts divide its model axis with no shared
+    experts, and raises otherwise, as the reference's ``build_lm``."""
+    from repro_torch.models.sharding import AbstractMesh
     cfg = tget_arch("yi_34b", smoke=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        if what == "mesh":
-            tbuild_lm(cfg, mesh=object(), device="cpu")
-        else:
-            tbuild_lm(cfg, moe_strategy="ep", device="cpu")
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    if what == "mesh":
+        lm = tbuild_lm(cfg, mesh=mesh, global_batch=1, device="cpu")
+        assert lm.rules.batch is None and lm.rules.kv_seq == ("data",
+                                                               "model")
+        return
+    with pytest.raises(ValueError, match="needs a mesh"):
+        tbuild_lm(cfg, moe_strategy="ep", device="cpu")
+    with pytest.raises(ValueError, match="needs a mesh"):
+        tbuild_lm(cfg, mesh=mesh, moe_strategy="ep", device="cpu")
+    qwen = tget_arch("qwen2-moe-a2.7b", smoke=True)
+    with pytest.raises(ValueError, match="shared experts"):
+        tbuild_lm(qwen, mesh=mesh, moe_strategy="ep", device="cpu")

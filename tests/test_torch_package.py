@@ -64,7 +64,11 @@ def test_no_module_imports_jax_or_the_reference_package():
             "repro_torch.data.model_traces",
             "repro_torch.data.synthetic", "repro_torch.optim.adamw",
             "repro_torch.checkpoint.store", "repro_torch.runtime.watchdog",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.compat",
+            "repro_torch.models.sharding", "repro_torch.models.moe_ep",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline", "repro_torch.launch.report",
+            "repro_torch.kernels.dma_copy.ref"} <= set(mods)
     assert len(mods) > 15
     code = (
         "import importlib, sys\n"
@@ -196,27 +200,44 @@ def test_controller_runs_on_the_gpu_unless_asked():
                                   "cache_service", "flash_attention"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
     """For a tensor on another device than the CPU the wrappers launch the
-    kernel or raise; on the ``meta`` device (no data, no kernel) they raise
-    rather than run the plain version."""
+    kernel or raise. On the ``meta`` device (no data, no kernel) the
+    kernels of the model path, B1, B2, B3 and B6, give their plain
+    versions' result shapes (the dry run counts the model's work on
+    ``meta`` tensors) and launch nothing; the others raise rather than
+    run the plain version."""
     dev = torch.device("meta")
     i32 = torch.zeros((1, 8), dtype=torch.int32, device=dev)
     table = torch.zeros((8, 4), device=dev)
     sidx = torch.zeros((3,), dtype=torch.int32, device=dev)
     vals = torch.zeros((3, 4), device=dev)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
+    if call in ("sort", "gather", "scatter_set", "scatter_add",
+                "flash_attention"):
         if call == "sort":
-            bs_kernel.bitonic_sort_batched(i32, i32)
+            out = bs_kernel.bitonic_sort_batched(i32, i32)
+            want = [((1, 8), torch.int32)] * 3
         elif call == "gather":
-            sg_kernel.gather_rows(table, sidx)
+            out = [sg_kernel.gather_rows(table, sidx)]
+            want = [((3, 4), torch.float32)]
         elif call == "flash_attention":
             q = torch.zeros((1, 8, 4, 16), device=dev)
-            fa_kernel.flash_attention_fwd(q, q[:, :, :2], q[:, :, :2])
-        elif call == "row_resolve":
+            out = [fa_kernel.flash_attention_fwd(q, q[:, :, :2],
+                                                 q[:, :, :2])]
+            want = [((1, 8, 4, 16), torch.float32)]
+        else:
+            out = [ss_kernel.scatter_rows(table, sidx, vals,
+                                          mode=call.removeprefix("scatter_"))]
+            want = [((8, 4), torch.float32)]
+        assert [(tuple(t.shape), t.dtype) for t in out] == want
+        assert all(t.device.type == "meta" for t in out)
+        assert [lib.launches for lib in LIBS] == [0] * len(LIBS)
+        return
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        if call == "row_resolve":
             cl_kernel.row_resolve(sidx.long(), vals, vals, vals)
         elif call == "dma_copy":
             dc_kernel.staged_copy(table.reshape(-1), vals.new_zeros(32),
                                   chunk_elems=128, channels=4)
-        elif call.startswith("cache"):
+        else:
             state = init_cache(CacheConfig(num_lines=256), 4, device=dev)
             if call == "cache_probe":
                 cl_kernel.cache_probe(sidx, state.tags, state.age,
@@ -227,9 +248,6 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
                                          write_back=True, rows=8)
             else:
                 cl_ops.cache_service(table, sidx, state)
-        else:
-            ss_kernel.scatter_rows(table, sidx, vals,
-                                   mode=call.removeprefix("scatter_"))
     assert [lib.launches for lib in LIBS] == [0] * len(LIBS)
 
 
