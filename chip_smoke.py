@@ -227,10 +227,18 @@ Phases (a failing phase raises and the script exits non-zero):
    leaf at TRAIN_F32_REL_BOUND. B6 at this shape in bf16 is held in
    phase 3's ATTN_CASES. Then five AdamW steps through ``Trainer.run``
    with an async checkpoint after the third, counters zeroed just
-   before: each of the four kernels launched, the loss falls; a new
-   ``Trainer`` resumes from the checkpoint and repeats the last two
-   losses. Prints the step seconds, tokens a second,
-   peak memory and the card.
+   before: each of the four kernels launched five times its launches a
+   gradient, the loss falls; a new ``Trainer`` resumes from the
+   checkpoint and repeats the last two losses bit for bit. Prints the
+   step seconds, tokens a second, peak memory and the card. Then the
+   same checks (``TRAIN_CELLS``) on four more families at full width,
+   depth cut only where 80 GB forces it: train_moe (qwen2-moe-a2.7b, 4
+   of 24 layers, with the checkpoint and its bit-for-bit resume; the
+   float32 comparison on the kernels run's MoE routes, ``moe_routes``),
+   train_ssm (mamba2-2.7b uncut; no attention), train_encoder
+   (hubert-xlarge uncut, 8 x 1024 frames: B6 96 times a gradient on its
+   float32 route and no token lookup) and train_vlm (internvl2-76b, 2 of
+   80 layers, 4 x (256 patches + 1024 tokens), its own peak rate).
 
 9. distributed (``run_distributed``, in a one-rank NCCL group made
    through a ``FileStore``): the train phase's model, batches and AdamW
@@ -260,6 +268,7 @@ from __future__ import annotations
 import contextlib
 import collections
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -271,6 +280,7 @@ import sys
 import tempfile
 import time
 import warnings
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -464,10 +474,18 @@ TRAIN_ATTN_SHAPE, TRAIN_ATTN_WINDOW = (TRAIN_BATCH, TRAIN_SEQ, 32, 8, 80), 4096
 ENCODER_ATTN_SHAPE = (8, 1024, 16, 16, 80)
 TRAIN_STEPS, TRAIN_CKPT = 5, 3
 TRAIN_OPT = OptimizerConfig(peak_lr=3e-5, warmup_steps=2, total_steps=100)
+# B6 at the train_moe path's shape (qwen2-moe-a2.7b: 16/16 heads of 128,
+# causal) and at the train_vlm path's (internvl2-76b: 64/8 heads of 128,
+# causal, 256 patches and 1024 text tokens a sequence).
+TRAIN_MOE_ATTN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128)
+TRAIN_VLM_ATTN_SHAPE = (VLM_BATCH, 256 + VLM_TEXT, 64, 8, 128)
 # The gradient of every leaf kernels on against off, in float32: the bound
 # of the CPU gradient tests against jax.grad (tests/test_torch_grads.py),
 # relative to the leaf's largest magnitude.
 TRAIN_F32_REL_BOUND = 1e-4
+# Bytes of training state a parameter: bf16 weight and gradient, float32
+# AdamW moments.
+TRAIN_STATE_BYTES = 2 + 2 + 4 + 4
 # Each kernel of the train path by a fragment of its CUDA kernels' names
 # in a profiler trace (B3's add kernels; PyTorch's own kernels, whose
 # names carry a namespace, are left out). After the earlier phases the
@@ -484,6 +502,54 @@ TRAIN_TRACES = 3
 TRAIN_KERNEL_NAMES = {"bitonic_sort": "bitonic_", "sorted_gather":
                       "gather_rows_", "sorted_scatter": "scatter_add_",
                       "flash_attention": "flash_fwd"}
+# B6's CUDA kernel of each route by its name in a trace.
+B6_KERNEL = {"flash_attention_fwd": "flash_fwd_kernel",
+             "flash_attention_fwd_tc": "flash_fwd_tc_kernel"}
+
+
+class TrainCell(NamedTuple):
+    """One train phase: ``arch`` at full width through ``Trainer``, cut
+    to ``layers`` layers (None: uncut) only where 80 GB forces it, on
+    make_batch's ``batch`` x ``seq`` positions a step, AdamW by ``opt``.
+    With ``ckpt`` the first run writes an async checkpoint after
+    TRAIN_CKPT steps and a new ``Trainer`` resumes from it."""
+    arch: str
+    layers: Optional[int]
+    batch: int
+    seq: int
+    ckpt: bool
+    opt: OptimizerConfig = TRAIN_OPT
+
+
+# internvl2-76b's layers are 8192 wide, 3.2 times h2o-danube's: Adam's
+# first steps move each weight by the learning rate, and at TRAIN_OPT's
+# peak step 2 threw its loss from 11.39 up to 20.33 on an H100. Its peak
+# is TRAIN_OPT's scaled by the widths' ratio, rounded.
+TRAIN_VLM_OPT = dataclasses.replace(TRAIN_OPT, peak_lr=1e-5)
+# The train phase (h2o-danube-1.8b, above), then the rest of the zoo
+# trained on the card in this order. qwen2-moe-a2.7b cut to 4 of its 24
+# layers (2.905e9 params, 34.9 GB of bf16 weights and gradients and
+# float32 moments; uncut 14.3e9 would need 171 GB); mamba2-2.7b and
+# hubert-xlarge uncut (64 and 48 layers); internvl2-76b cut to 2 of its 80
+# layers (3.839e9 params, 46.1 GB). jamba-v0.1-52b's first attention layer
+# is its fifth: a cut that keeps one holds 7.15e9 params, 85.8 GB of
+# state, beyond one card. Batches: the train phase's 4 x 2048 Zipf
+# tokens, the encoder phase's 8 x 1024 frames, the vlm phase's 4 x (256
+# patches + 1024 tokens).
+TRAIN_CELLS = {
+    "train": TrainCell(TRAIN_ARCH, None, TRAIN_BATCH, TRAIN_SEQ, True),
+    "train_moe": TrainCell("qwen2-moe-a2.7b", 4, TRAIN_BATCH, TRAIN_SEQ,
+                           True),
+    "train_ssm": TrainCell("mamba2-2.7b", None, TRAIN_BATCH, TRAIN_SEQ,
+                           False),
+    "train_encoder": TrainCell(ENCODER_ARCH, None, ENCODER_BATCH,
+                               ENCODER_FRAMES, False),
+    "train_vlm": TrainCell(VLM_ARCH, 2, VLM_BATCH, 256 + VLM_TEXT, False,
+                           opt=TRAIN_VLM_OPT),
+}
+# jamba-v0.1-52b cut to its first attention layer (the fifth), printed by
+# the train_moe phase: the least state a one-card training of it holds.
+TRAIN_JAMBA_FLOOR = ("jamba-v0.1-52b", 5)
 # The distributed phase: the train path's model, batch and optimizer on
 # a one-rank ("data", "model") mesh for DIST_STEPS steps, held to the
 # unsharded trainer bit for bit. The moe_ep phase: one MoE layer of
@@ -2361,7 +2427,8 @@ def check_attention(dev, gen) -> dict:
 def timings_attention(dev, gen) -> dict:
     """Phase 5, B6 at the serve path's prefill shape (first: the kernel
     line's row), at the encoder path's float32 shape (the CUDA-core
-    route) and at the train path's shape: the kernel, its plain version
+    route) and at the train, train_moe and train_vlm paths' shapes: the
+    kernel, its plain version
     and ``scaled_dot_product_attention`` on the same inputs (in its (B, H,
     S, hd) layout; no window argument, and each window here spans the
     whole sequence), beside the bound: the two products' FLOPs over the
@@ -2371,7 +2438,9 @@ def timings_attention(dev, gen) -> dict:
     for shape, dtype, causal, window in (
             (ATTN_SHAPE, torch.bfloat16, True, None),
             (ENCODER_ATTN_SHAPE, torch.float32, False, None),
-            (TRAIN_ATTN_SHAPE, torch.bfloat16, True, TRAIN_ATTN_WINDOW)):
+            (TRAIN_ATTN_SHAPE, torch.bfloat16, True, TRAIN_ATTN_WINDOW),
+            (TRAIN_MOE_ATTN_SHAPE, torch.bfloat16, True, None),
+            (TRAIN_VLM_ATTN_SHAPE, torch.bfloat16, True, None)):
         B, S, H, KV, hd = shape
         assert window is None or window >= S
         q, k, v = attention_inputs(gen, dev, shape, dtype)
@@ -3523,9 +3592,10 @@ def leaf_names(tree, prefix: str = "") -> list:
 
 def grad_rel_errs(got, want) -> list:
     """Per leaf, max |got - want| over the largest |want| (0 where both
-    are zero, inf where only ``got`` is not)."""
+    are zero, inf where only ``got`` is not), on ``want``'s device."""
     errs = []
     for g, w in zip(leaves(got), leaves(want)):
+        g = g.to(w.device)
         top = float(w.float().abs().max())
         err = float((g.float() - w.float()).abs().max())
         errs.append(err / top if top else (0.0 if err == 0 else math.inf))
@@ -3596,12 +3666,19 @@ def check_train_embed(table, tokens, up, got, mc) -> dict:
         "embedding lookup: kernel rows differ from index_select's"
     assert same_bits(got, grads[True]), \
         "embedding gradient: another backward, other bits"
-    exact = torch.zeros(got.shape, dtype=torch.float64,
-                        device=got.device).index_add_(0, flat, rows.double())
-    mass = torch.zeros_like(exact).index_add_(0, flat, rows.double().abs())
-    m = (torch.bincount(flat, minlength=got.shape[0]).double() - 1).clamp(
+    # the float64 sums on the rows the batch hits, the only rows that
+    # may be nonzero (float64 copies of internvl2's whole table, 8.4 GB
+    # each, held its grad checks at 74.5 GB)
+    hit, inv = torch.unique(flat, return_inverse=True)
+    missed = (sums32 != 0).any(1)
+    missed[hit] = False
+    assert not bool(missed.any()), "embedding gradient: a row off the batch"
+    exact = torch.zeros((hit.numel(), rows.shape[1]), dtype=torch.float64,
+                        device=got.device).index_add_(0, inv, rows.double())
+    mass = torch.zeros_like(exact).index_add_(0, inv, rows.double().abs())
+    m = (torch.bincount(inv, minlength=hit.numel()).double() - 1).clamp(
         min=0)[:, None] * 2.0 ** -24
-    err32 = (sums32.double() - exact).abs()
+    err32 = (sums32[hit].double() - exact).abs()
     over = err32 - m / (1 - m) * mass * (1 + 2.0 ** -28)
     assert float(over.max()) <= 0, \
         f"embedding gradient: float32 sums {float(over.max())} past bound"
@@ -3609,28 +3686,50 @@ def check_train_embed(table, tokens, up, got, mc) -> dict:
     return dict(
         embed_grad_max_repeats=int(m.max() / 2.0 ** -24) + 1,
         embed_grad_f32_rel_err=float(err32.max()) / top,
-        embed_grad_rel_err=float((got.double() - exact).abs().max()) / top,
+        embed_grad_rel_err=float((got[hit].double() - exact).abs().max())
+        / top,
         embed_grad_off_rel_err=float(
-            (grads[False].double() - exact).abs().max()) / top)
+            (grads[False][hit].double() - exact).abs().max()) / top)
+
+
+def grad_launches_wanted(cfg, lookup: bool) -> dict:
+    """Each kernel's launches in one gradient of ``cfg``'s loss: the
+    token lookup's sort and its backward's, its gather and its backward's
+    add (none without a token lookup); attention in each attention
+    layer's forward and again in its recompute under ``cfg.remat``."""
+    return {"bitonic_sort": 2 * lookup, "sorted_gather": int(lookup),
+            "sorted_scatter": int(lookup),
+            "flash_attention": (1 + cfg.remat) * sum(
+                cfg.layer_kinds(l)[0] == "attn"
+                for l in range(cfg.num_layers))}
 
 
 def train_grads(dev, trainer, params, batch) -> dict:
     """C22 on the card. The gradient of ``LM.loss`` with kernels on, its
     counters zeroed just before, the forward and the backward
     (``torch.autograd.grad`` of every leaf, as ``loss_and_grads`` takes
-    it; a leaf the loss does not reach raises) each under its own
-    ``torch.profiler`` trace: every leaf's gradient finite, and B1, B2, B3
-    (the embedding's backward) and B6 each launched, by their counters
-    and by their kernels' names in the traces (retaken, up to
-    TRAIN_TRACES times, until each has shown in one). The table's
-    gradient is
-    held to ``check_train_embed`` on the gradient that reached the
-    lookup (B2 and B3 on the path's bf16 rows). Then ``loss_and_grads`` with
-    kernels off, printed; then on a float32 copy of the weights kernels
-    on against off, every leaf within TRAIN_F32_REL_BOUND."""
+    it; the loss must reach every leaf but a frontend's unused token
+    table, whose gradient is zero as ``jax.grad`` gives) each under its own
+    ``torch.profiler`` trace: every leaf's gradient finite; each kernel's
+    launches ``grad_launches_wanted``'s, B6's all on the route of the
+    residual stream's dtype (float32 for hubert's frames, C21), and no
+    other kernel launched; each launched kernel named in the traces
+    (retaken, up to TRAIN_TRACES times, until each has shown in one) and
+    none of the others. Where the family has a token lookup, the table's
+    gradient is held to ``check_train_embed`` on the gradient that
+    reached the lookup (B2 and B3 on the path's bf16 rows); without one,
+    the loss's graph holds no ``EmbedLookup``. Then ``loss_and_grads``
+    with kernels off, printed; then on a float32 copy of the weights (it
+    replaces ``params``) kernels on against off, every leaf within
+    TRAIN_F32_REL_BOUND."""
     lm = trainer.lm
+    cfg = lm.cfg
     plain = dataclasses.replace(lm, cfg=dataclasses.replace(
-        lm.cfg, use_kernels=False))
+        cfg, use_kernels=False))
+    lookup = "tokens" in batch
+    want = grad_launches_wanted(cfg, lookup)
+    route = fa_kernel.ROUTES[torch.float32 if cfg.modality == "audio"
+                             else torch.bfloat16]
     out = {}
     seen = {k: set() for k in TRAIN_KERNEL_NAMES}
     markers = []
@@ -3641,44 +3740,53 @@ def train_grads(dev, trainer, params, batch) -> dict:
         tree = map_tree(lambda _: next(it), params)
         (loss, _), fwd, fwd_markers = traced_kernels(
             lambda: lm.loss(tree, batch))
-        lookup = grad_node(loss.grad_fn, "EmbedLookupBackward")
-        assert lookup is not None, "no EmbedLookup in the loss's graph"
+        node = grad_node(loss.grad_fn, "EmbedLookupBackward")
+        assert (node is not None) == lookup, \
+            f"EmbedLookup in the loss's graph: {node is not None}"
         reached = []
-        lookup.register_prehook(
-            lambda g: reached.append(g[0].detach().clone()))
+        if lookup:
+            node.register_prehook(
+                lambda g: reached.append(g[0].detach().clone()))
         grads, bwd, bwd_markers = traced_kernels(
-            lambda: torch.autograd.grad(loss, flat))
+            lambda: torch.autograd.grad(loss, flat, allow_unused=True))
+        unused = [n for n, g in zip(leaf_names(params), grads) if g is None]
+        assert unused == ([] if lookup else ["embed/table"]), unused
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(flat, grads)]
+        del tree, flat
         launches = {name: lib.launches for name, lib in LIBS.items()}
+        routes = dict(fa_kernel.LIB.entry_launches)
         markers.append((fwd_markers, bwd_markers))
         for k, frag in TRAIN_KERNEL_NAMES.items():
             seen[k] |= {n for n in fwd + bwd if frag in n and "::" not in n}
-        if all(seen.values()):
+        if all(seen[k] for k, n in want.items() if n):
             break
-    for name in TRAIN_KERNEL_NAMES:
-        assert seen[name], f"no {name} kernel in {tries} traces " \
-            f"(markers left {markers})"
-    # the lookup's sort and its backward's; the gather; the backward's
-    # add; attention in each layer's forward and again in its recompute
-    cfg = lm.cfg
-    want = {"bitonic_sort": 2, "sorted_gather": 1, "sorted_scatter": 1,
-            "flash_attention": (1 + cfg.remat) * sum(
-                cfg.layer_kinds(l)[0] == "attn"
-                for l in range(cfg.num_layers))}
-    assert {n: launches[n] for n in want} == want, launches
-    off_path = {n: c for n, c in launches.items()
-                if n not in TRAIN_KERNEL_NAMES}
+    for name, n in want.items():
+        assert bool(seen[name]) == bool(n), \
+            f"{name}: {n} launches a gradient, traced {sorted(seen[name])} " \
+            f"in {tries} traces (markers left {markers})"
+    if want["flash_attention"]:
+        assert seen["flash_attention"] == {B6_KERNEL[route]}, seen
+    assert {n: launches[n] for n in want} == want, (launches, want)
+    assert routes == {**dict.fromkeys(routes, 0),
+                      route: want["flash_attention"]}, routes
+    off_path = {n: c for n, c in launches.items() if n not in want}
     assert not any(off_path.values()), f"off-path launches {off_path}"
     bad = [i for i, g in enumerate(grads)
            if not bool(torch.isfinite(g).all())]
     assert not bad, f"non-finite gradients at leaves {bad}"
-    out.update(loss=float(loss), grad_launches=launches,
+    out.update(loss=float(loss.detach()), grad_launches=launches,
+               flash_attention_routes=routes,
                grad_kernels={k: sorted(v) for k, v in seen.items()},
                grad_traces=tries, grad_trace_markers=markers,
                leaves=len(grads))
-    assert len(reached) == 1, len(reached)
-    table_at = leaf_names(params).index("embed/table")
-    out.update(check_train_embed(params["embed"]["table"], batch["tokens"],
-                                 reached.pop(), grads[table_at], cfg.mc))
+    del loss
+    if lookup:
+        assert len(reached) == 1, len(reached)
+        table_at = leaf_names(params).index("embed/table")
+        out.update(check_train_embed(
+            params["embed"]["table"], batch["tokens"], reached.pop(),
+            grads[table_at], cfg.mc))
     it = iter(grads)
     grads = map_tree(lambda _: next(it), params)
     _, _, plain_grads = loss_and_grads(plain, params, batch)
@@ -3687,54 +3795,114 @@ def train_grads(dev, trainer, params, batch) -> dict:
     del grads, plain_grads
     torch.cuda.empty_cache()
 
-    p32 = map_tree(lambda t: t.float(), params)
-    lm32, plain32 = (dataclasses.replace(m, cfg=dataclasses.replace(
-        m.cfg, param_dtype="float32")) for m in (lm, plain))
-    loss32, _, g32 = loss_and_grads(lm32, p32, batch)
-    loss32_off, _, g32_off = loss_and_grads(plain32, p32, batch)
+    lm32 = float32_copy(lm, params)
+    plain32 = dataclasses.replace(lm32, cfg=dataclasses.replace(
+        lm32.cfg, use_kernels=False))
+    out["f32_param_bytes"] = param_bytes(params)
+    routes = []
+    with moe_routes(routes):
+        loss32, _, g32 = loss_and_grads(lm32, params, batch)
+    assert all(bool(torch.isfinite(g).all()) for g in leaves(g32))
+    # kept on the host while the kernels-off gradients are taken: one
+    # float32 copy of the weights fewer on the card
+    g32 = map_tree(lambda t: t.cpu(), g32)
+    torch.cuda.empty_cache()
+    if cfg.moe is not None:
+        # unpinned: each route the kernels-off run's own, printed
+        free = []
+        with moe_routes(free):
+            _, _, g32_off = loss_and_grads(plain32, params, batch)
+        n = len(routes) // (1 + cfg.remat)
+        out.update(f32_route_flips=[
+            int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum())
+            for a, b in zip(routes[:n], free[:n])],
+            f32_free_grad_rel_errs=dict(zip(
+                leaf_names(params), grad_rel_errs(g32, g32_off))))
+        del g32_off, free
+    with moe_routes(routes, replay=True):
+        loss32_off, _, g32_off = loss_and_grads(plain32, params, batch)
     errs = grad_rel_errs(g32, g32_off)
     out.update(f32_loss=float(loss32), f32_loss_off=float(loss32_off),
                f32_grad_rel_errs=dict(zip(leaf_names(params), errs)),
                f32_grad_rel_bound=TRAIN_F32_REL_BOUND)
-    assert all(bool(torch.isfinite(g).all()) for g in leaves(g32))
     assert max(errs) <= TRAIN_F32_REL_BOUND, out
     return out
 
 
-def run_train(dev) -> dict:
-    """Phase 8, train: ``Trainer`` (``repro_torch.launch.train``) on
-    TRAIN_ARCH uncut, random weights from seed 0, make_batch's TRAIN_BATCH
-    x TRAIN_SEQ tokens a step, AdamW (TRAIN_OPT). First the gradient
-    checks of ``train_grads`` on step 0's batch; then TRAIN_STEPS steps
-    through ``Trainer.run`` with an async checkpoint after step
-    TRAIN_CKPT (under build/, removed after), counters zeroed just before
-    and read just after: B1, B2, B3 and B6 must each have run; the loss
-    must fall (the mean of the last two steps' below the first step's by
-    0.1); then a new ``Trainer`` resumes from the checkpoint and must
-    repeat the later steps' losses (rtol 1e-6). Prints step seconds,
-    tokens a second, peak memory and the card."""
+@contextlib.contextmanager
+def moe_routes(record: list, replay: bool = False):
+    """While open, each MoE router's top-k choice
+    (``blocks.top_k_lower_first``) is appended to ``record`` in call
+    order, or with ``replay`` taken from it in the same order: the
+    experts chosen then, weighted by this call's own probabilities there,
+    so the gradient flows through this call's router. Pinning the kernels
+    route's choices on the kernels-off run compares the two on the same
+    discrete dispatch: a float32 near-tie that B6's last bits tip would
+    otherwise move a token to another expert, and a drop with it (the
+    count is printed as ``f32_route_flips``)."""
+    top_k = blocks.top_k_lower_first
+    pinned = iter(list(record)) if replay else None
+
+    def choose(probs, k):
+        if replay:
+            idx = next(pinned)
+            return probs.gather(-1, idx), idx
+        vals, idx = top_k(probs, k)
+        record.append(idx)
+        return vals, idx
+
+    blocks.top_k_lower_first = choose
+    try:
+        yield
+    finally:
+        blocks.top_k_lower_first = top_k
+    assert not replay or next(pinned, None) is None, "routes left over"
+
+
+def run_train(dev, phase: str = "train") -> dict:
+    """Phase 8, train and the rest of the zoo's train phases:
+    ``Trainer`` (``repro_torch.launch.train``) on TRAIN_CELLS[phase]'s
+    architecture at full width, random weights from seed 0, make_batch's
+    batch a step, AdamW (the cell's: TRAIN_OPT but for internvl2's
+    TRAIN_VLM_OPT). First the gradient checks of
+    ``train_grads`` on step 0's batch; then TRAIN_STEPS steps through
+    ``Trainer.run``, counters zeroed just before and read just after:
+    each kernel launched TRAIN_STEPS times its launches a gradient, no
+    other kernel; every loss finite, and the loss must fall (the mean of
+    the last two steps' below the first step's by 0.1). Where the cell
+    checkpoints, the run writes an async checkpoint after step TRAIN_CKPT
+    (under build/, removed after), and a new ``Trainer`` resumes from it
+    and must repeat the later steps' losses bit for bit. Prints step
+    seconds, tokens a second, peak memory and the card."""
+    cell = TRAIN_CELLS[phase]
     torch.cuda.reset_peak_memory_stats(dev)
-    ckpt_dir = os.path.join(ROOT, "build", "train_ckpt")
+    ckpt_dir = os.path.join(ROOT, "build", f"{phase}_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    tc = TrainerConfig(arch=TRAIN_ARCH, steps=TRAIN_STEPS, seed=SEED,
-                       batch_override=TRAIN_BATCH, seq_override=TRAIN_SEQ,
-                       ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT,
-                       log_every=TRAIN_STEPS, opt=TRAIN_OPT,
-                       device=str(dev))
+    tc = TrainerConfig(arch=cell.arch, steps=TRAIN_STEPS, seed=SEED,
+                       batch_override=cell.batch, seq_override=cell.seq,
+                       ckpt_dir=ckpt_dir if cell.ckpt else None,
+                       ckpt_every=TRAIN_CKPT, log_every=TRAIN_STEPS,
+                       arch_overrides=(None if cell.layers is None else
+                                       {"num_layers": cell.layers}),
+                       opt=cell.opt, device=str(dev))
     trainer = Trainer(tc)
     cfg = trainer.cfg
     t0 = time.perf_counter()
     params, _, _ = trainer.init_state()
     torch.cuda.synchronize()
+    tokens = cell.batch * cell.seq
     out = dict(arch=cfg.name, layers=cfg.num_layers,
+               uncut_layers=get_arch(cell.arch).num_layers,
                params=cfg.param_count(), param_bytes=param_bytes(params),
-               batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat=cfg.remat,
+               batch=cell.batch, seq=cell.seq, remat=cfg.remat,
                remat_policy=cfg.remat_policy,
                init_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    out.update(train_grads(dev, trainer, params, trainer.batch_at(0)))
+    batch = trainer.batch_at(0)
+    want = grad_launches_wanted(cfg, "tokens" in batch)
+    out.update(train_grads(dev, trainer, params, batch))
     out["grad_checks_s"] = time.perf_counter() - t0
-    del params
+    del params, batch
     gc.collect()
     torch.cuda.empty_cache()
     out["grad_peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -3746,31 +3914,38 @@ def run_train(dev) -> dict:
         run = trainer.run()
         torch.cuda.synchronize()
         out["run_s"] = time.perf_counter() - t0
-        launches = read_launches("train")
-        for name in TRAIN_KERNEL_NAMES:
-            assert launches[name] > 0, f"{name} did not run in training"
+        launches = {name: lib.launches for name, lib in LIBS.items()}
+        assert launches == {n: TRAIN_STEPS * want.get(n, 0)
+                            for n in LIBS}, (launches, want)
         history = run["history"]
         step_s = list(trainer.watchdog.times)
         out.update(launches=launches, losses=history, step_s=step_s,
                    median_step_s=run["median_step_s"],
-                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
-                   / run["median_step_s"],
+                   tokens_per_s=tokens / run["median_step_s"],
                    peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
         assert all(math.isfinite(x) for x in history), history
         assert np.mean(history[-2:]) < history[0] - 0.1, history
         del run, trainer
         gc.collect()
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        resumed = Trainer(tc).run()["history"]
-        torch.cuda.synchronize()
-        out.update(resume_s=time.perf_counter() - t0, resumed=resumed)
-        assert len(resumed) == TRAIN_STEPS - TRAIN_CKPT, resumed
-        np.testing.assert_allclose(resumed, history[TRAIN_CKPT:], rtol=1e-6)
-        out["resume_max_abs_diff"] = float(np.abs(
-            np.asarray(resumed) - np.asarray(history[TRAIN_CKPT:])).max())
+        if cell.ckpt:
+            t0 = time.perf_counter()
+            resumed = Trainer(tc).run()["history"]
+            torch.cuda.synchronize()
+            out.update(resume_s=time.perf_counter() - t0, resumed=resumed)
+            assert resumed == history[TRAIN_CKPT:], \
+                f"resumed losses {resumed} against {history[TRAIN_CKPT:]}"
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if cfg.moe is not None:
+        arch, n = TRAIN_JAMBA_FLOOR
+        floor = dataclasses.replace(get_arch(arch), num_layers=n)
+        out["jamba_floor"] = dict(
+            layers=n, params=floor.param_count(),
+            state_gb=floor.param_count() * TRAIN_STATE_BYTES / 1e9)
+    out["state_gb"] = cfg.param_count() * TRAIN_STATE_BYTES / 1e9
     out["card"] = card()
     return out
 
@@ -3873,11 +4048,7 @@ def run_distributed(dev) -> dict:
     sharded = Trainer(tc, mesh=mesh)
     lm = sharded.lm
     p2, o2, _ = sharded.init_state()
-    cfg = lm.cfg
-    per_grad = {"bitonic_sort": 2, "sorted_gather": 1, "sorted_scatter": 1,
-                "flash_attention": (1 + cfg.remat) * sum(
-                    cfg.layer_kinds(l)[0] == "attn"
-                    for l in range(cfg.num_layers))}
+    per_grad = grad_launches_wanted(lm.cfg, True)
     seen = {k: set() for k in TRAIN_KERNEL_NAMES}
     out = dict(mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
                layouts=sorted({str(tuple(t.placements))
@@ -4179,7 +4350,8 @@ def run(dev) -> None:
             ("encoder", lambda: run_encoder(dev)),
             ("vlm", lambda: run_vlm(dev)),
             ("capture", lambda: run_capture(dev)),
-            ("train", lambda: run_train(dev))):
+            *((phase, functools.partial(run_train, dev, phase))
+              for phase in TRAIN_CELLS)):
         t0 = time.perf_counter()
         v = run_path()
         say(phase="slice", path=path, seconds=time.perf_counter() - t0, **v)

@@ -10,7 +10,9 @@ Fault-tolerance posture:
     rescale plan (``runtime.elastic.plan_rescale``).
 On a mesh, parameters and moments are DTensors laid out by
 ``param_specs`` and ``opt_state_specs``, and each gradient is reduced to
-its parameter's layout before the update.
+its parameter's layout before the update. The trainer's step takes over
+its state leaf by leaf, as the reference's jitted step donates it, so a
+step holds one copy of the weights and moments, not two.
 
 The gradient is torch autograd through ``LM.loss``: the embedding lookup's
 backward is the controller's gradient write (B1's sort and B3's ``add``,
@@ -67,12 +69,16 @@ def loss_and_grads(lm, params, batch):
             map_tree(lambda _: next(it), params))
 
 
-def make_train_step(lm, opt_cfg: OptimizerConfig):
+def make_train_step(lm, opt_cfg: OptimizerConfig, donate: bool = False):
+    """``train_step(params, opt_state, batch)`` -> (params, opt_state,
+    metrics). With ``donate`` the step takes over the state it is given
+    (``adamw_update``'s ``donate``): the caller's trees then hold the new
+    state and must not be read for the old one."""
     def train_step(params, opt_state, batch):
         loss, metrics, grads = loss_and_grads(lm, params, batch)
         with lm._on_mesh():
             params, opt_state, om = adamw_update(grads, opt_state, params,
-                                                 opt_cfg)
+                                                 opt_cfg, donate=donate)
         return params, opt_state, {"loss": loss, **metrics, **om}
     return train_step
 
@@ -126,7 +132,9 @@ class Trainer:
         self.watchdog = StepWatchdog()
         self.ckpt = (CheckpointManager(tc.ckpt_dir, save_every=tc.ckpt_every)
                      if tc.ckpt_dir else None)
-        self.step_fn = make_train_step(self.lm, tc.opt)
+        # the state is the trainer's own (a given tree is copied dict by
+        # dict in init_state), so each step takes it over
+        self.step_fn = make_train_step(self.lm, tc.opt, donate=True)
 
     # -- state ---------------------------------------------------------------
     def init_state(self):
@@ -134,7 +142,9 @@ class Trainer:
         if params is None:
             params = self.lm.init(
                 torch.Generator(self.device).manual_seed(self.tc.seed))
-        elif self.mesh is not None:
+        elif self.mesh is None:
+            params = map_tree(lambda p: p, params)
+        else:
             it = iter(leaves(self.lm.param_specs()))
             params = map_tree(lambda p: p if is_dtensor(p) else distribute(
                 p.to(self.device), self.mesh, next(it)), params)

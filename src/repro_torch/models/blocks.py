@@ -425,6 +425,21 @@ def on_batch_shards(fn, p, *xs, rules: Rules, mesh, batch="batch",
                             out_specs=outs)(p, *xs)
 
 
+def dispatch_rows(flat: torch.Tensor, num_groups: int,
+                  top_k: int) -> torch.Tensor:
+    """Each token row of ``flat`` (T, D) repeated ``top_k`` times in
+    arrival order, per group: (G, T·k/G, D), row ``j`` of group ``g``
+    token ``j // top_k`` of that group. Built by expanding a new axis, so
+    the backward sums each token's ``top_k`` row gradients in a fixed
+    order (a reduction over that axis), where an index with repeats
+    would accumulate them by ``index_put_`` in no fixed order on CUDA
+    (ROADMAP C23)."""
+    T, D = flat.shape
+    TG = T // num_groups
+    return flat.reshape(num_groups, TG, 1, D).expand(
+        num_groups, TG, top_k, D).reshape(num_groups, TG * top_k, D)
+
+
 def moe_experts(p, flat, top_p, top_e, cfg: ArchConfig, *,
                 no_drop: bool = False, dispatch: str = "sort",
                 num_groups: int = 1):
@@ -448,8 +463,7 @@ def moe_experts(p, flat, top_p, top_e, cfg: ArchConfig, *,
     dest = top_e.reshape(G, na) * (capacity + 1) + slot    # (G, n)
 
     # dispatch: (G, E, C+1, D) buffers, one row per assignment
-    tok = torch.arange(TG, device=flat.device).repeat_interleave(m.top_k)
-    upd = flat.reshape(G, TG, D)[:, tok]                   # (G, n, D)
+    upd = dispatch_rows(flat, G, m.top_k)                  # (G, n, D)
     buf = torch.zeros((G, E * (capacity + 1), D), dtype=flat.dtype,
                       device=flat.device)
     buf.scatter_(1, dest[..., None].expand(G, na, D), upd)
@@ -554,7 +568,13 @@ def mamba_forward(p, x, cfg: ArchConfig, rules: Rules = None, mesh=None):
         cum = torch.cumsum(dt_c * a, dim=1)                # (B, L, H)
         # intra-chunk: M[l,m,h] = exp(cum_l - cum_m) * (c_l·b_m) * dt_m, l>=m
         scores = torch.einsum("bln,bmn->blm", c_c, b_c)
-        decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])
+        # the exponent is masked before exp: above the diagonal cum_l -
+        # cum_m > 0 overflows exp to inf at a full-width chunk, and the
+        # mask's backward would then multiply 0 by inf (ROADMAP C30); the
+        # kept entries are the same bits
+        decay = torch.exp(torch.where(
+            mask[None, :, :, None], cum[:, :, None, :] - cum[:, None, :, :],
+            -math.inf))
         mmat = torch.where(mask[None, :, :, None],
                            scores[..., None] * decay * dt_c[:, None, :, :],
                            0.0)                            # (B, L, M, H)

@@ -37,7 +37,7 @@ from repro_torch.compat import P
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import capture as capture_mod
 from repro_torch.models import layers
-from repro_torch.models.blocks import (capture_moe_dispatch,
+from repro_torch.models.blocks import (capture_moe_dispatch, dispatch_rows,
                                        top_k_lower_first)
 from repro_torch.models.sharding import full, mesh_shape
 
@@ -133,14 +133,14 @@ def moe_ffn_ep(p, x, cfg: ArchConfig, mesh, *, no_drop: bool = False):
         pos = torch.arange(n, device=dev) - run_start[owner_s]
         slot = torch.where(pos < c_send, pos, c_send)  # drop slot
 
-        tok_of = torch.arange(t_loc, device=dev).repeat_interleave(
-            m.top_k)[order]
         eid_of = (e_flat % e_loc)[order]              # local expert id
 
-        # every drop writes slot c_send, which is cut off before sending
+        # every drop writes slot c_send, which is cut off before sending;
+        # each token's k rows come from one expand, so its gradient is a
+        # fixed-order sum (ROADMAP C23)
         send_tok = torch.zeros((tp, c_send + 1, D), dtype=xl.dtype,
                                device=dev).index_put(
-            (owner_s, slot), flat[tok_of])
+            (owner_s, slot), dispatch_rows(flat, 1, m.top_k)[0][order])
         send_eid = torch.full((tp, c_send + 1), e_loc, dtype=torch.int64,
                               device=dev).index_put((owner_s, slot), eid_of)
 

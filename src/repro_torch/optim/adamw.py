@@ -7,7 +7,9 @@ update math runs in float32 whatever the parameter dtype, and each new
 parameter is rounded to its dtype once. Trees are nested dicts of tensors
 (a parameter tree, its gradients, the moments), walked in sorted key
 order (``models.params.map_tree``). The update is functional: it returns
-new trees and changes none of its arguments. On a device mesh the leaves
+new trees and writes none of its arguments' tensors (with ``donate`` it
+replaces the leaves in its arguments' dicts, as the reference's jitted
+step donates its state). On a device mesh the leaves
 are DTensors and each moment keeps its parameter's layout
 (``opt_state_specs``); the update then runs on each rank's shards, and
 the global norm sums over all of them.
@@ -83,11 +85,30 @@ def global_norm(tree) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
+def _slots(tree) -> list:
+    """(dict, key) of each leaf of a nested dict, in ``leaves``' order."""
+    out = []
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out.extend(_slots(tree[k]))
+        else:
+            out.append((tree, k))
+    return out
+
+
 @torch.no_grad()
-def adamw_update(grads, opt_state, params, cfg: OptimizerConfig
+def adamw_update(grads, opt_state, params, cfg: OptimizerConfig, *,
+                 donate: bool = False
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step (with global-norm clipping). Returns
-    (new_params, new_opt_state, metrics)."""
+    (new_params, new_opt_state, metrics).
+
+    ``donate`` hands the old state over, as the reference's jitted step
+    donates its parameters and moments: each leaf of ``params``,
+    ``opt_state["m"]`` and ``opt_state["v"]`` is replaced in its dict by
+    its new value as soon as that exists, and each gradient leaf by None,
+    so a step holds one copy of the state, not two. The returned trees
+    are then those dicts; the old tensors are not written."""
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -97,25 +118,43 @@ def adamw_update(grads, opt_state, params, cfg: OptimizerConfig
     b2c = 1 - torch.pow(cfg.b2, step.float())
 
     def upd(p, g, m, v):
-        g = g.float() * scale
-        m_new = cfg.b1 * m + (1 - cfg.b1) * g
-        v_new = cfg.b2 * v + (1 - cfg.b2) * g * g
-        mh = m_new / b1c
-        vh = v_new / b2c
-        delta = mh / (torch.sqrt(vh) + cfg.eps)
-        # decoupled weight decay on matrices only (ndim >= 2)
+        # g·scale; m_new = b1·m + (1 - b1)·g; v_new = b2·v + (1 - b2)·g·g;
+        # delta = (m_new / b1c) / (sqrt(v_new / b2c) + eps), plus wd·p on
+        # matrices only (ndim >= 2); p_new = p - lr·delta, rounded to
+        # p's dtype once. Each operation is the one of that formula on the
+        # same operands, written in place into this leaf's own float32
+        # temporaries, so at most four of them live at a time.
+        g = g.to(torch.float32, copy=True).mul_(scale)
+        m_new = (m * cfg.b1).add_(g * (1 - cfg.b1))
+        t = (g * (1 - cfg.b2)).mul_(g)
+        del g
+        v_new = (v * cfg.b2).add_(t)
+        del t
+        vh = (v_new / b2c).sqrt_().add_(cfg.eps)
+        delta = (m_new / b1c).div_(vh)
+        del vh
         if p.ndim >= 2:
-            delta = delta + cfg.weight_decay * p.float()
-        p_new = (p.float() - lr * delta).to(p.dtype)
-        return p_new, m_new, v_new
+            delta.add_(p.to(torch.float32, copy=True).mul_(
+                cfg.weight_decay))
+        p_new = p.to(torch.float32, copy=True).sub_(delta.mul_(lr))
+        return p_new.to(p.dtype), m_new, v_new
 
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
-        leaves(params), leaves(grads), leaves(opt_state["m"]),
-        leaves(opt_state["v"]))]
+    slots = zip(*(_slots(t) for t in (params, grads, opt_state["m"],
+                                      opt_state["v"])))
+    out = []
+    for (pt, pk), (gt, gk), (mt, mk), (vt, vk) in slots:
+        new = upd(pt[pk], gt[gk], mt[mk], vt[vk])
+        if donate:
+            pt[pk], mt[mk], vt[vk] = new
+            gt[gk] = None
+        else:
+            out.append(new)
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    if donate:
+        return params, {"m": opt_state["m"], "v": opt_state["v"],
+                        "step": step}, metrics
 
     def tree(i):
         it = iter(o[i] for o in out)
         return map_tree(lambda _: next(it), params)
-
-    new_state = {"m": tree(1), "v": tree(2), "step": step}
-    return tree(0), new_state, {"grad_norm": gnorm, "lr": lr}
+    return tree(0), {"m": tree(1), "v": tree(2), "step": step}, metrics
