@@ -59,6 +59,12 @@ Phases (a failing phase raises and the script exits non-zero):
      oracle. Then each plain ``add`` of this batch (``coalesce_add_runs``
      and the controller with kernels off, scheduler on and off, bf16 and
      float32 values) is called twice and must give the same bits.
+     Then plain_embed_grad (``run_plain_embed_grad``, ROADMAP C32):
+     ``mc_embed``'s two plain routes under autograd at the train
+     phase's table (32000 x 2560 bf16) and 4 x 2048 Zipf ids, each
+     table gradient the same bits twice, no kernel launched and no
+     ``index_add`` dispatched, held to the kernel route as
+     ``check_mixed_add`` holds an ``add``.
    - bulk: ``bulk_read`` of one yi-34b FFN weight (7168 x 20480 bf16) and
      ``bulk_write`` of one layer's prefill K and V into one sequence's
      KV cache (60 x 2 x 4096 x 8 x 128 bf16) at layer 30, held to the
@@ -169,6 +175,15 @@ Phases (a failing phase raises and the script exits non-zero):
      over 300 tokens (a chunk boundary and a ragged tail), each within
      SERVE_F32_REL_BOUND, the bf16 readings printed. Each prints parameter
      bytes, prefill seconds, decode seconds a step and tokens a second.
+   - serve_internlm2, serve_granite and serve_mixtral (the last three
+     architectures), the same way on the same mix: internlm2-20b uncut
+     (48 layers, 48/8 heads, 39.72 GB) and granite-34b cut to 60 of its
+     88 layers (MQA, a GQA group of 48; 64.82 GB, uncut 94.50 GB) held
+     by ``check_serve`` as yi-34b is; mixtral-8x7b cut to 20 of its 32
+     layers (8 experts top-2, window 4096; 58.58 GB, uncut 93.41 GB) by
+     ``check_moe_serve``, its float32 gates on a copy cut to 8 layers
+     (47.49 GB). B6's window of 4096 never bites at 1024-token prompts;
+     phase 3 holds it at S 8192 (``ATTN_CASES``).
 
 7. the rest of the zoo, each after the earlier paths' memory is freed,
    random weights from seed 0, counters zeroed just before the path and
@@ -258,6 +273,15 @@ Phases (a failing phase raises and the script exits non-zero):
    ranks with ``meta`` tensors: per-device FLOPs, state bytes (pinned),
    collective bytes, the roofline seconds and bottleneck; no launch.
 
+12. examples: ``examples/torch_quickstart.py``, ``torch_serve_batched.py``,
+   ``torch_gather_acceleration.py`` and ``torch_train_100m.py`` (5 steps)
+   through their ``main`` on the card, counters zeroed before each: each
+   asserts what its reference example asserts, and must launch
+   ``EXAMPLE_KERNELS``' kernels and no other. Each runs again under
+   ``held_to_plain``: the same launches and results, every launch held
+   against its plain version on its own inputs. Their modeled cycles,
+   hit rates and admission equal the same code's on the CPU.
+
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches on its own path, and ``launches_by_path`` on every path); the
 last line is ``{"ok": true, "device": {...}}``.
@@ -270,6 +294,8 @@ import collections
 import dataclasses
 import functools
 import gc
+import importlib.util
+import io
 import json
 import math
 import os
@@ -284,6 +310,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -321,6 +348,7 @@ from repro_torch.kernels.dma_copy import kernel as dc_kernel  # noqa: E402
 from repro_torch.kernels.dma_copy import ops as dc_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.sorted_gather import kernel as sg_kernel  # noqa: E402
+from repro_torch.kernels.sorted_gather import ops as sg_ops  # noqa: E402
 from repro_torch.kernels.sorted_scatter import kernel as ss_kernel  # noqa: E402
 from repro_torch.kernels.sorted_scatter import ops as ss_ops  # noqa: E402
 from repro_torch.kernels.sorted_scatter.coalesce import coalesce_add_runs  # noqa: E402
@@ -394,6 +422,12 @@ ATTN_CASES = [
      False, None),
     ("granite MQA group 48, ragged S 1000", (1, 1000, 48, 1, 128),
      torch.bfloat16, True, None),
+    ("mixtral window 4096 at S 8192", (1, 8192, 32, 8, 128),
+     torch.bfloat16, True, 4096),
+    ("internlm2 serve prefill 8 x 1024", (8, SERVE_PROMPT, 48, 8, 128),
+     torch.bfloat16, True, None),
+    ("granite MQA group 48, serve prefill 8 x 1024",
+     (8, SERVE_PROMPT, 48, 1, 128), torch.bfloat16, True, None),
     ("float32 ragged S 1000, group 7", (2, 1000, 14, 2, 80), torch.float32,
      True, None),
     ("float32 S 1", (3, 1, 56, 8, 128), torch.float32, True, None),
@@ -447,6 +481,22 @@ MOE_F32_BATCH = 2
 # layers, 53 GB in float32).
 SERVE_HYBRID_ARCH, SERVE_HYBRID_LAYERS = "jamba-v0.1-52b", 16
 SERVE_HYBRID_F32_LAYERS = 8
+# The last three architectures, served after serve_ssm on the same mix:
+# internlm2-20b uncut (48 layers, 48/8 heads of 128, 39.72 GB of bf16
+# weights), granite-34b cut to 60 of its 88 layers (MQA, 48 query heads
+# over one KV head; 64.82 GB, uncut 94.50 GB) and mixtral-8x7b cut to 20
+# of its 32 layers (8 experts top-2, window 4096; 58.58 GB, uncut 93.41
+# GB), its float32 gates on a copy cut to 8 layers (47.49 GB in float32).
+# The cuts leave the headroom of yi-34b's serve (68.78 GB of weights, a
+# 72.5 GB peak).
+SERVE_INTERNLM2_ARCH = "internlm2-20b"
+SERVE_GRANITE_ARCH, SERVE_GRANITE_LAYERS = "granite-34b", 60
+SERVE_MIXTRAL_ARCH, SERVE_MIXTRAL_LAYERS = "mixtral-8x7b", 20
+SERVE_MIXTRAL_F32_LAYERS = 8
+# The two dense serves' bf16 logits drift past SERVE_REL_BOUND (ROADMAP
+# C33): their gates run on float32 copies cut to these depths (42.0 and
+# 36.3 GB in float32).
+SERVE_INTERNLM2_F32_LAYERS, SERVE_GRANITE_F32_LAYERS = 24, 16
 # The encoder: hubert-xlarge uncut (48 layers, 2.52 GB), forward and loss
 # on make_batch's frames: 8 clips of 1024 frames (about 20 s of audio at
 # 50 frames a second).
@@ -546,6 +596,24 @@ TRAIN_CELLS = {
                                ENCODER_FRAMES, False),
     "train_vlm": TrainCell(VLM_ARCH, 2, VLM_BATCH, 256 + VLM_TEXT, False,
                            opt=TRAIN_VLM_OPT),
+}
+# The plain_embed_grad phase (ROADMAP C32): the train phase's table
+# (h2o-danube-1.8b, 32000 x 2560 bf16) and its step-0 batch of 4 x 2048
+# Zipf(1.1) ids, under an upstream bf16 gradient at the train path's
+# scale.
+EMBED_GRAD_SCALE = 1e-2
+# The examples phase: the four examples/torch_*.py on the card, the
+# training one for this many steps; each example's launches.
+EXAMPLE_TRAIN_STEPS = 5
+EXAMPLE_KERNELS = {
+    "torch_quickstart": ("bitonic_sort", "sorted_gather", "sorted_scatter",
+                         "flash_attention"),
+    "torch_serve_batched": ("bitonic_sort", "sorted_gather",
+                            "flash_attention"),
+    # MemoryController.gather sorts with torch.sort, then B2
+    "torch_gather_acceleration": ("sorted_gather",),
+    "torch_train_100m": ("bitonic_sort", "sorted_gather", "sorted_scatter",
+                         "flash_attention"),
 }
 # jamba-v0.1-52b cut to its first attention layer (the fifth), printed by
 # the train_moe phase: the least state a one-card training of it holds.
@@ -745,6 +813,140 @@ def block_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     _, exp = torch.frexp(top)
     ulp = torch.ldexp(torch.ones_like(top), exp - bits)
     return float((got.float() - want.float()).abs().max() / ulp)
+
+
+class AtenOps(TorchDispatchMode):
+    """Records the name of every ATen op dispatched inside it, those of
+    autograd's backward formulas included (``index_select``'s backward
+    dispatches ``aten.index_add`` from C++, which no Python patch sees)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def rounded_err(got: torch.Tensor, want32: torch.Tensor, tol: float) -> float:
+    """How far a bf16 or f16 result ``got`` lies beyond what a float32
+    result within ``tol`` (rtol = atol) of ``want32`` can be once rounded
+    to ``got``'s dtype: that float32 result's slack plus one ulp of the
+    dtype at the magnitude it may reach (half an ulp for the rounding,
+    doubled for a binade crossed). At most 0 where ``got`` passes."""
+    bits, floor = {torch.bfloat16: (8, -133), torch.float16: (11, -24)}[
+        got.dtype]
+    w = want32.double()
+    slack = tol * (1 + w.abs())
+    _, exp = torch.frexp(w.abs() + slack)
+    ulp = torch.ldexp(torch.ones_like(w), (exp - bits).clamp(min=floor))
+    return float(((got.double() - w).abs() - slack - ulp).max())
+
+
+def _hold_sort(keys, vals, got):
+    ids = torch.arange(keys.shape[1], dtype=torch.int32,
+                       device=keys.device).expand(keys.shape).contiguous()
+    want = bs_kernel.sort_network(keys, ids, vals)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+        f"bitonic_sort {tuple(keys.shape)} != plain"
+    return 0.0
+
+
+def _hold_gather(table, sorted_idx, got):
+    assert same_bits(got, sg_kernel.gather_rows_plain(table, sorted_idx)), \
+        f"gather {tuple(table.shape)} x {sorted_idx.numel()} != plain"
+    return 0.0
+
+
+def _hold_scatter(table, sorted_idx, values, got, mode="set"):
+    name = f"scatter {mode} {table.dtype} {tuple(values.shape)}"
+    if mode == "set" or not table.dtype.is_floating_point:
+        want = ss_kernel.scatter_rows_plain(table, sorted_idx, values,
+                                            mode=mode)
+        assert torch.equal(got, want), f"{name} != plain"
+        return 0.0
+    if table.dtype in (torch.bfloat16, torch.float16):
+        want32 = ss_kernel.scatter_rows_plain(table.float(), sorted_idx,
+                                              values, mode="add")
+        err = rounded_err(got, want32, 1e-5)
+        assert err <= 0, f"{name}: {err} beyond its float32 sums rounded"
+    else:
+        want32 = ss_kernel.scatter_rows_plain(table, sorted_idx, values,
+                                              mode="add")
+        assert torch.allclose(got, want32, rtol=1e-5, atol=1e-5), \
+            f"{name}: beyond 1e-5"
+    return float((got.double() - want32.double()).abs().max())
+
+
+def _hold_attention(q, k, v, got, *, causal, window, q_block, kv_block,
+                    out_dtype):
+    want32 = fa_kernel.flash_attention_plain(
+        q.float(), k.float(), v.float(), causal=causal, window=window,
+        q_block=q_block, kv_block=kv_block)
+    name = f"attention {tuple(q.shape)} {q.dtype}"
+    assert got.shape == want32.shape and got.dtype == out_dtype, name
+    assert bool(torch.isfinite(got).all()), f"{name}: non-finite"
+    if out_dtype == torch.float32:
+        assert torch.allclose(got, want32, rtol=3e-5, atol=3e-5), \
+            f"{name}: beyond 3e-5"
+    else:
+        err = rounded_err(got, want32, 3e-5)
+        assert err <= 0, f"{name}: {err} beyond its float32 result rounded"
+    return float((got.double() - want32.double()).abs().max())
+
+
+# The wrappers that launch B1, B2, B3 and B6, each as the port reaches it
+# ((module, attribute), ...), with the check that holds one launch's result
+# against the plain version on the same inputs.
+HELD = {"bitonic_sort": (((bs_kernel, "bitonic_sort_batched"),
+                          (bs_ops, "bitonic_sort_batched")), _hold_sort),
+        "sorted_gather": (((sg_kernel, "gather_rows"),
+                           (sg_ops, "gather_rows")), _hold_gather),
+        "sorted_scatter": (((ss_kernel, "scatter_rows"),), _hold_scatter),
+        "flash_attention": (((fa_kernel, "_forward"),), _hold_attention)}
+
+
+@contextlib.contextmanager
+def held_to_plain(held: dict):
+    """Hold every launch of B1, B2, B3 and B6 inside the block against its
+    plain version on the same inputs, just after it (the plain versions
+    launch nothing): B1, B2 and B3's ``set`` bit for bit; B3's ``add``
+    within 1e-5 and B6 within 3e-5 (rtol = atol) of the plain float32
+    result, as ``check_kernels`` and ``check_attention`` hold them, and a
+    bf16 or f16 result within that of the plain result on its inputs
+    converted to float32 (exact), plus one ulp of its dtype
+    (``rounded_err``). ``held[kernel][shapes]`` gains the launches held
+    and their largest absolute error."""
+
+    def holding(name, fn, check):
+        lib = LIBS[name]
+
+        def call(*args, **kwargs):
+            before = lib.launches
+            out = fn(*args, **kwargs)
+            if lib.launches > before:
+                err = check(*args, out, **kwargs)
+                key = " ".join(f"{tuple(a.shape)}" for a in args
+                               if isinstance(a, torch.Tensor))
+                row = held.setdefault(name, {}).setdefault(
+                    key, dict(launches=0, max_abs_err=0.0))
+                row["launches"] += lib.launches - before
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+            return out
+        return call
+
+    saved = []
+    try:
+        for name, (sites, check) in HELD.items():
+            fn = getattr(*sites[0])
+            for mod, attr in sites:
+                saved.append((mod, attr, getattr(mod, attr)))
+                setattr(mod, attr, holding(name, fn, check))
+        yield held
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 @contextlib.contextmanager
@@ -2592,7 +2794,7 @@ def check_greedy(res, out: dict) -> None:
         out[f"{what}_greedy_equal"] = int(same.sum())
 
 
-def check_serve(server, batch) -> dict:
+def check_serve(server, batch, f32_layers=None) -> dict:
     """The serve path held to itself: the same params with kernels off
     (last-token prefill logits within SERVE_REL_BOUND, greedy tokens of
     the prefill and of the first decode step equal wherever the plain
@@ -2601,7 +2803,14 @@ def check_serve(server, batch) -> dict:
     B6's own error: at every layer, B6's attention block within
     SERVE_ATTN_ULPS bf16 ulps of the plain block's largest magnitude on the
     same input (``serve_drift``'s ``attn_b6_ulps``). ``serve_drift`` is
-    printed first, so that a failing check shows which layers moved."""
+    printed first, so that a failing check shows which layers moved.
+    With ``f32_layers`` (internlm2-20b and granite-34b: their bf16 logits
+    drift past SERVE_REL_BOUND between any two summation orders, the
+    plain attention's reordered sums as far as B6, and the reference
+    drifts as far, ROADMAP C33) the bf16 logit readings are printed
+    (``*_bf16``) and the logit and greedy gates run on a float32 copy cut
+    to ``f32_layers`` layers (``float32_gates``); B6's per-layer gate
+    stays on the served bf16 weights."""
     lm, params = server.lm, server.params
     prompts = torch.from_numpy(np.stack([r.prompt for r in batch])).to(
         server.device)
@@ -2620,10 +2829,18 @@ def check_serve(server, batch) -> dict:
     assert drift["attn_b6_worst_ulps"] <= SERVE_ATTN_ULPS, \
         f"B6's attention block {drift['attn_b6_worst_ulps']} bf16 ulps " \
         f"from the plain one at layer {drift['attn_b6_worst_layer']}"
+    assert bool(torch.isfinite(full).all()), "forward: non-finite logits"
+    if f32_layers is not None:
+        out = {**{f"{k}_bf16": out.pop(k) for k in (
+            "prefill_rel_err", "decode_vs_forward_rel_err")}, **out,
+               "logits_reordered_bf16": drift["logits_reordered"]}
+        del res, full
+        torch.cuda.empty_cache()
+        return float32_gates(lm, params, prompts, max_len, f32_layers,
+                             "serve_dense_float32", out)
     assert out["prefill_rel_err"] <= SERVE_REL_BOUND, out
     check_greedy(res, out)
     assert out["decode_vs_forward_rel_err"] <= SERVE_REL_BOUND, out
-    assert bool(torch.isfinite(full).all()), "forward: non-finite logits"
     return out
 
 
@@ -2786,6 +3003,18 @@ def check_moe_serve(server, batch, f32_layers=None) -> dict:
     del res
     torch.cuda.empty_cache()
 
+    return float32_gates(lm, params, prompts, max_len, f32_layers,
+                         "serve_moe_float32", out)
+
+
+def float32_gates(lm, params, prompts, max_len, f32_layers, phase: str,
+                  out: dict) -> dict:
+    """The serve gates on a float32 copy of the served weights (cut to
+    ``f32_layers`` layers when given; it replaces them), for the first
+    MOE_F32_BATCH prompts, within SERVE_F32_REL_BOUND: last-token prefill
+    logits kernels on against off, with greedy tokens, and a decode step
+    against the cache-free forward (an MoE's on ``no_drop``). Adds the
+    readings to ``out`` and prints it as ``phase`` before the gates."""
     lm32 = float32_copy(lm, params, f32_layers)
     out.update(float32_layers=lm32.cfg.num_layers,
                float32_param_bytes=param_bytes(params))
@@ -2794,8 +3023,9 @@ def check_moe_serve(server, batch, f32_layers=None) -> dict:
     out["prefill_rel_err"] = rel_err(res["kernels"][0], res["plain"][0])
     check_greedy(res, out)
     out["decode_vs_forward_rel_err"] = decode_vs_forward(
-        no_drop(lm32), params, batch32, tok, max_len)
-    say(phase="serve_moe_float32", **out)
+        no_drop(lm32) if lm32.cfg.moe else lm32, params, batch32, tok,
+        max_len)
+    say(phase=phase, **out)
     assert out["prefill_rel_err"] <= SERVE_F32_REL_BOUND, out
     assert out["decode_vs_forward_rel_err"] <= SERVE_F32_REL_BOUND, out
     return out
@@ -2912,13 +3142,15 @@ def param_bytes(params) -> int:
 
 
 def run_family_serve(dev, arch: str, check, layers=None) -> dict:
-    """Phase 4, serve_moe, serve_ssm and serve_hybrid: ``Server(arch)`` at
+    """Phase 4, serve_moe, serve_ssm, serve_internlm2, serve_granite,
+    serve_mixtral and serve_hybrid: ``Server(arch)`` at
     its full configuration on the card (cut to ``layers`` layers when
     given, by ``CutServer``; random weights from seed 0) serving the
     yi-34b serve's mix, counters zeroed just before ``serve``. Flash
     attention must launch once per attention layer per batch, all on its
     tensor-core route, the scheduler's sort and gather in every embedding
-    lookup, and no other kernel. Then ``check(server, first batch)``."""
+    lookup, and no other kernel. Then ``check(server, first batch)``, its
+    own peak memory printed apart (``check_peak_mem_gb``)."""
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     server = Server(arch, device=dev) if layers is None else \
@@ -2948,9 +3180,12 @@ def run_family_serve(dev, arch: str, check, layers=None) -> dict:
     generated = check_outputs(stats, reqs, cfg)
     weight_bytes = param_bytes(server.params)
     # the check may replace the served weights by a float32 copy
+    torch.cuda.reset_peak_memory_stats(dev)
     consistency = check(server, server.admit(reqs)[0])
+    check_peak = torch.cuda.max_memory_allocated(dev) / 1e9
     return dict(
-        arch=cfg.name, layers=cfg.num_layers, params=cfg.param_count(),
+        arch=cfg.name, layers=cfg.num_layers,
+        uncut_layers=get_arch(arch).num_layers, params=cfg.param_count(),
         param_bytes=weight_bytes, init_s=init_s, batches=stats.batches,
         batch_sizes=[len(b) for b in server.admit(reqs)],
         prefill_tokens=stats.prefill_tokens, generated_tokens=generated,
@@ -2960,7 +3195,8 @@ def run_family_serve(dev, arch: str, check, layers=None) -> dict:
         decode_s_per_step=stats.decode_s / stats.decode_steps,
         tokens_per_s=(stats.prefill_tokens + generated) / stats.wall_s,
         launches=launches, flash_attention_routes=routes, peak_mem_gb=peak,
-        sample_output=reqs[0].output, card=card(), **consistency)
+        check_peak_mem_gb=check_peak, sample_output=reqs[0].output,
+        card=card(), **consistency)
 
 
 def run_encoder(dev) -> dict:
@@ -3692,6 +3928,92 @@ def check_train_embed(table, tokens, up, got, mc) -> dict:
             (grads[False][hit].double() - exact).abs().max()) / top)
 
 
+def run_plain_embed_grad(dev) -> dict:
+    """C32 on the card: ``mc_embed``'s two plain routes (kernels off, and
+    the scheduler disabled) under autograd at the train phase's table and
+    step-0 batch, counters zeroed just before. Each route's backward is
+    B3's plain ``add``: it launches no kernel and dispatches no
+    ``index_add`` (``AtenOps``); its bf16 table gradient, taken twice,
+    must have the same bits, be the plain float32 sums of the same addends
+    rounded once, and be the other route's bits. Then the kernel route (B1
+    twice, B2 and B3 once) on the same rows: held to the plain route as
+    ``check_mixed_add`` holds an ``add`` into a bf16 table (its bits B3's
+    float32 sums rounded once, those sums within float32 reassociation of
+    the plain ones). Prints each route's bf16 error against the exact
+    (float64) sums over their largest magnitude."""
+    cfg = get_arch(TRAIN_ARCH)
+    shape = ShapeConfig(name="custom", kind="train", seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH)
+    tokens = torch.from_numpy(make_batch(
+        cfg, shape, step=0, seed=SEED,
+        batch_override=TRAIN_BATCH)["tokens"]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    table = torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    up = (torch.randn(*tokens.shape, cfg.d_model, generator=gen, device=dev)
+          * EMBED_GRAD_SCALE).to(torch.bfloat16)
+    unscheduled = dataclasses.replace(cfg.mc, scheduler=dataclasses.replace(
+        cfg.mc.scheduler, enabled=False))
+    routes = {"kernels_off": (cfg.mc, False),
+              "scheduler_off": (unscheduled, True)}
+
+    def grad(mc, use_kernels):
+        t = table.detach().requires_grad_()
+        rows = layers.mc_embed(t, tokens, mc, use_kernels=use_kernels)
+        with AtenOps() as aten:
+            (g,) = torch.autograd.grad(rows, [t], up)
+        assert same_bits(rows, table[tokens.long()]), "embedding rows"
+        assert not [op for op in aten.ops if "index_add" in op], aten.ops
+        return g
+
+    zero_launches()
+    t0 = time.perf_counter()
+    plain = {}
+    for name, (mc, use_kernels) in routes.items():
+        g = grad(mc, use_kernels)
+        again = grad(mc, use_kernels)
+        torch.cuda.synchronize()
+        assert same_bits(g, again), \
+            f"plain embedding gradient ({name}): other bits on a second call"
+        plain[name] = g
+        del again
+    seconds = time.perf_counter() - t0
+    launches = {n: lib.launches for n, lib in LIBS.items()}
+    assert not any(launches.values()), f"plain routes launched {launches}"
+    assert same_bits(plain["kernels_off"], plain["scheduler_off"]), \
+        "the two plain routes' gradients differ"
+
+    zero_launches()
+    got = grad(cfg.mc, True)
+    kernel_launches = {n: lib.launches for n, lib in LIBS.items()}
+    want = grad_launches_wanted(cfg, True)
+    assert kernel_launches == {**dict.fromkeys(LIBS, 0), **want,
+                               "flash_attention": 0}, kernel_launches
+    zeros32 = torch.zeros(table.shape, dtype=torch.float32, device=dev)
+    got32 = ss_ops.sorted_scatter(zeros32, tokens, up, mode="add",
+                                  use_bitonic=True)
+    want32 = ss_ops.sorted_scatter(zeros32, tokens, up, mode="add",
+                                   backend="torch")
+    assert same_bits(plain["kernels_off"], want32.to(torch.bfloat16)), \
+        "plain embedding gradient: not its float32 sums rounded once"
+    mixed = check_mixed_add(got, plain["kernels_off"], got32, want32)
+
+    flat = tokens.reshape(-1).long()
+    hit, inv = torch.unique(flat, return_inverse=True)
+    exact = torch.zeros((hit.numel(), cfg.d_model), dtype=torch.float64,
+                        device=dev).index_add_(
+        0, inv, up.reshape(flat.shape[0], -1).double())
+    top = float(exact.abs().max())
+    errs = {name: float((g[hit].double() - exact).abs().max()) / top
+            for name, g in {"kernels": got, **plain}.items()}
+    return dict(arch=cfg.name, table=list(table.shape), ids=list(tokens.shape),
+                longest_run=int(torch.bincount(flat).max()),
+                seconds=seconds, launches=launches,
+                kernel_route_launches=kernel_launches,
+                same_bits_twice=sorted(plain), mixed_add=mixed,
+                bf16_rel_err_vs_exact=errs)
+
+
 def grad_launches_wanted(cfg, lookup: bool) -> dict:
     """Each kernel's launches in one gradient of ``cfg``'s loss: the
     token lookup's sort and its backward's, its gather and its backward's
@@ -4220,6 +4542,119 @@ def run_dryrun(train_median_s: float) -> dict:
     return rec
 
 
+def run_examples(dev) -> dict:
+    """The examples phase: each ``examples/torch_*.py``'s ``main`` on
+    ``dev`` (``torch_train_100m`` for EXAMPLE_TRAIN_STEPS steps, its
+    checkpoint directory under build/, removed after each run), counters
+    zeroed just before each. Each example asserts what its reference
+    example does (value identity, every request served, finite losses);
+    here each must also have launched EXAMPLE_KERNELS' kernels and no
+    other. Then the same ``main`` again on the card under
+    ``held_to_plain``: the same launches, each held against its plain
+    version on its own inputs (the examples' shapes: yi-34b's smoke train
+    and serve, mixtral's smoke prompts, the 100M model's 2 x 128 batch),
+    and the same results; its timings are not kept. Then the results that
+    do not depend on the device's arithmetic (modeled cycles, hit rates,
+    admission) against the same ``main`` on the CPU. Each example's
+    standard output is kept, and its last lines printed."""
+    out, held = {}, {}
+    ckpt_dir = os.path.join(ROOT, "build", "examples_ckpt")
+    argv = {"torch_train_100m": ["--steps", str(EXAMPLE_TRAIN_STEPS),
+                                 "--ckpt-dir", ckpt_dir]}
+
+    def run_main(mod, name, device):
+        log = io.StringIO()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        try:
+            with contextlib.redirect_stdout(log):
+                res = mod.main(["--device", str(device),
+                                *argv.get(name, [])])
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        return res, log.getvalue().splitlines()
+
+    for name, kernels in EXAMPLE_KERNELS.items():
+        spec = importlib.util.spec_from_file_location(
+            f"_example_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        zero_launches()
+        t0 = time.perf_counter()
+        res, lines = run_main(mod, name, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {n: lib.launches for n, lib in LIBS.items()}
+        ran = {n for n, c in launches.items() if c}
+        assert ran == set(kernels), f"{name}: launched {launches}"
+
+        zero_launches()
+        mine = {}
+        with held_to_plain(mine):
+            again, _ = run_main(mod, name, dev)
+        torch.cuda.synchronize()
+        again_launches = {n: lib.launches for n, lib in LIBS.items()}
+        assert again_launches == launches, (name, again_launches)
+        assert {n: sum(r["launches"] for r in rows.values())
+                for n, rows in mine.items()} == \
+            {n: c for n, c in launches.items() if c}, (name, mine)
+        assert untimed(again) == untimed(res), f"{name}: other results"
+        for kernel, rows in mine.items():
+            for shapes, row in rows.items():
+                held.setdefault(kernel, {})[f"{name} {shapes}"] = row
+        out[name] = dict(seconds=seconds, launches=launches, result=res,
+                         stdout_tail=lines[-4:])
+        del mod
+        gc.collect()
+        torch.cuda.empty_cache()
+    total = {n: sum(v["launches"][n] for v in out.values()) for n in LIBS}
+    return dict(launches=total, examples=out, held_to_plain=held,
+                on_cpu=examples_on_cpu(out), card=card())
+
+
+def untimed(res):
+    """An example's results without its wall-clock readings."""
+    if isinstance(res, dict):
+        return {k: untimed(v) for k, v in res.items()
+                if k not in ("wall_ms", "median_step_s")}
+    return res
+
+
+def examples_on_cpu(out: dict) -> dict:
+    """The examples' results that do not depend on the device's
+    arithmetic, against the same code on the CPU: quickstart's modeled
+    controller, gather_acceleration's modeled cycles and hit rates, and
+    serve_batched's admission and counts. Equal, or this raises. (The
+    CPU draws other weights from its own generator, so losses and served
+    tokens are not compared here; every launch that made them was held
+    to its plain version.)"""
+    mods = {}
+    for name in ("torch_quickstart", "torch_gather_acceleration",
+                 "torch_serve_batched"):
+        spec = importlib.util.spec_from_file_location(
+            f"_example_{name}_cpu", os.path.join(ROOT, "examples",
+                                                 f"{name}.py"))
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    keys = {"torch_gather_acceleration": (
+                "naive_cycles", "controller_cycles", "makespan_cycles",
+                "combined_hit_rate", "hot_hit_rate", "lru_hit_rate"),
+            "torch_serve_batched": ("batch_sizes", "requests", "batches",
+                                    "decode_steps", "prefill_tokens")}
+    compared = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = {"torch_quickstart": dict(
+            controller=mods["torch_quickstart"].demo_controller("cpu"))}
+        for name in keys:
+            cpu[name] = mods[name].main(["--device", "cpu"])
+    for name, res in cpu.items():
+        card_res = out[name]["result"]
+        for key in keys.get(name, ("controller",)):
+            assert card_res[key] == res[key], (name, key, card_res[key],
+                                               res[key])
+            compared[f"{name}.{key}"] = res[key]
+    return compared
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4264,6 +4699,8 @@ def run(dev) -> None:
         add_f32=s["add32"],
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     say(phase="plain_add_repeats", **check_plain_add(dev, s))
+    e = run_plain_embed_grad(dev)
+    say(phase="plain_embed_grad", **e)
     b = run_bulk(dev, gen)
     say(phase="slice", path="bulk", seconds=b["seconds"],
         launches=b["launches"],
@@ -4282,7 +4719,9 @@ def run(dev) -> None:
         host_syncs=ct["host_syncs"],
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     launches = {"scheduler": s["launches"], "bulk": b["launches"],
-                "cache": c["launches"], "cache_trace": ct["launches"]}
+                "cache": c["launches"], "cache_trace": ct["launches"],
+                "plain_embed_grad": e["launches"]}
+    del e
     say(phase="simulate", **run_simulate())
 
     t = timings(dev, s)
@@ -4334,19 +4773,25 @@ def run(dev) -> None:
     torch.cuda.empty_cache()
     say(phase="freed", allocated_gb=torch.cuda.memory_allocated(dev) / 1e9)
     say(phase="autotune", **run_autotune())
-    for path, arch, check in (("serve_moe", SERVE_MOE_ARCH, check_moe_serve),
-                              ("serve_ssm", SERVE_SSM_ARCH, check_ssm_serve)):
-        v = run_family_serve(dev, arch, check)
-        say(phase="slice", path=path, **v)
-        launches[path] = v["launches"]
-        del v
-        gc.collect()
-        torch.cuda.empty_cache()
+    # the family serves: (path, arch, check, depth cut or None)
+    families = (
+        ("serve_moe", SERVE_MOE_ARCH, check_moe_serve, None),
+        ("serve_ssm", SERVE_SSM_ARCH, check_ssm_serve, None),
+        ("serve_internlm2", SERVE_INTERNLM2_ARCH, functools.partial(
+            check_serve, f32_layers=SERVE_INTERNLM2_F32_LAYERS), None),
+        ("serve_granite", SERVE_GRANITE_ARCH, functools.partial(
+            check_serve, f32_layers=SERVE_GRANITE_F32_LAYERS),
+         SERVE_GRANITE_LAYERS),
+        ("serve_mixtral", SERVE_MIXTRAL_ARCH, functools.partial(
+            check_moe_serve, f32_layers=SERVE_MIXTRAL_F32_LAYERS),
+         SERVE_MIXTRAL_LAYERS),
+        ("serve_hybrid", SERVE_HYBRID_ARCH, functools.partial(
+            check_moe_serve, f32_layers=SERVE_HYBRID_F32_LAYERS),
+         SERVE_HYBRID_LAYERS))
     for path, run_path in (
-            ("serve_hybrid", lambda: run_family_serve(
-                dev, SERVE_HYBRID_ARCH, lambda server, batch:
-                check_moe_serve(server, batch, SERVE_HYBRID_F32_LAYERS),
-                layers=SERVE_HYBRID_LAYERS)),
+            *((path, functools.partial(run_family_serve, dev, arch, check,
+                                       layers=cut))
+              for path, arch, check, cut in families),
             ("encoder", lambda: run_encoder(dev)),
             ("vlm", lambda: run_vlm(dev)),
             ("capture", lambda: run_capture(dev)),
@@ -4379,6 +4824,11 @@ def run(dev) -> None:
     v = run_dryrun(train_median_s)
     say(phase="slice", path="dryrun", seconds=time.perf_counter() - t0, **v)
     launches["dryrun"] = v["launches"]
+    t0 = time.perf_counter()
+    v = run_examples(dev)
+    say(phase="slice", path="examples", seconds=time.perf_counter() - t0,
+        **v)
+    launches["examples"] = v["launches"]
 
     kernels = []
     for name in LIBS:

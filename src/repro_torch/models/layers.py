@@ -205,8 +205,9 @@ def mc_embed(table: torch.Tensor, tokens: torch.Tensor,
     the controller. With ``use_kernels`` the sort is the bitonic network
     (B1) and the row gather the sorted-gather kernel (B2), their plain
     versions for CPU tensors, and the lookup's backward is the
-    controller's embedding-gradient write (``EmbedLookup``). Value-identical
-    to ``table[tokens]``.
+    controller's embedding-gradient write (``EmbedLookup``): B1 and B3
+    with ``use_kernels`` and the scheduler on, else their plain versions.
+    Value-identical to ``table[tokens]``.
 
     On a ``mesh`` (a DTensor table, laid out ``(None, "w_tp")``: the
     vocabulary replicated, ``d_model`` split over ``model``) each rank
@@ -222,13 +223,8 @@ def mc_embed(table: torch.Tensor, tokens: torch.Tensor,
             in_specs=(rules.spec(None, "w_tp"), rules.spec(*lead)),
             out_specs=rules.spec(*lead, "w_tp"))(table, tokens)
     _capture_embed("embed_gather", table, tokens, rw=0)
-    d = table.shape[-1]
-    if not mc.scheduler.enabled:
-        return table.index_select(0, tokens.reshape(-1)).reshape(
-            *tokens.shape, d)
-    if use_kernels:
-        return EmbedLookup.apply(table, tokens)
-    return _scheduled_lookup(table, tokens, use_kernels=False)
+    return EmbedLookup.apply(table, tokens, use_kernels,
+                             mc.scheduler.enabled)
 
 
 def _scheduled_lookup(table: torch.Tensor, tokens: torch.Tensor, *,
@@ -250,34 +246,46 @@ def _scheduled_lookup(table: torch.Tensor, tokens: torch.Tensor, *,
 
 
 class EmbedLookup(torch.autograd.Function):
-    """``mc_embed``'s kernel route under autograd. The forward is the
-    scheduled lookup (B1's sort, B2's gather, the unsort); the gather is a
-    ``ctypes`` launch that autograd cannot follow. The backward is the
-    embedding-gradient WRITE batch of the controller's scheduler: B1
-    stable-sorts the whole batch's token ids and B3 adds each token's
-    gradient row into a zero table (``sorted_scatter`` with
-    ``mode="add"``), each row's addends summed in at least float32 in an
-    order the batch fixes and rounded once, so the table's gradient has
-    the same bits on every call (``index_select``'s own CUDA backward adds
-    with atomics). It is
-    reported to an active capture as ``mc_scatter``'s write is. CPU
-    tensors take both directions' plain versions."""
+    """``mc_embed`` under autograd. The forward is the scheduled lookup
+    (the sort, the row gather in sorted order, the unsort): B1 and B2 with
+    ``use_kernels``, whose launches autograd cannot follow, else their
+    plain versions; with ``scheduled`` false, one ``index_select``. The
+    backward is the embedding-gradient WRITE batch of the controller's
+    scheduler: the whole batch's token ids stable-sorted and each token's
+    gradient row added into a zero table (``sorted_scatter`` with
+    ``mode="add"``), by B1 and B3 on the kernel route (``use_kernels``
+    and ``scheduled``; its write reported to an active capture as
+    ``mc_scatter``'s write is), by B3's plain ``add``
+    (``coalesce_add_runs``) on the others, on every device. Either way
+    each row's addends are summed in at least float32 in an order the
+    batch fixes and rounded once, so the table's gradient has the same
+    bits on every call (``index_select``'s own backward is an
+    ``index_add_``, which on CUDA adds duplicates with atomics). CPU
+    tensors take the kernels' plain versions."""
 
     @staticmethod
-    def forward(ctx, table, tokens):
+    def forward(ctx, table, tokens, use_kernels=True, scheduled=True):
         ctx.save_for_backward(tokens)
         ctx.table_shape = table.shape
-        return _scheduled_lookup(table, tokens, use_kernels=True)
+        ctx.kernels = use_kernels and scheduled
+        if scheduled:
+            return _scheduled_lookup(table, tokens, use_kernels=use_kernels)
+        return table.index_select(0, tokens.reshape(-1)).reshape(
+            *tokens.shape, table.shape[-1])
 
     @staticmethod
     def backward(ctx, grad):
         if not ctx.needs_input_grad[0]:
-            return None, None
+            return None, None, None, None
         (tokens,) = ctx.saved_tensors
         zero = grad.new_zeros(ctx.table_shape)
-        _capture_embed("embed_scatter", zero, tokens, rw=1)
+        if ctx.kernels:
+            _capture_embed("embed_scatter", zero, tokens, rw=1)
+            route = dict(use_bitonic=True)
+        else:
+            route = dict(backend="torch")
         return ss_ops.sorted_scatter(zero, tokens, grad, mode="add",
-                                     use_bitonic=True), None
+                                     **route), None, None, None
 
 
 def mc_scatter(table: torch.Tensor, tokens: torch.Tensor,
