@@ -26,7 +26,9 @@ Phases (a failing phase raises and the script exits non-zero):
    float32 output (``out_dtype=torch.float32``) rounded once, and that
    within 3e-5 of the plain float32 result (at the serve path's shape,
    windows, bidirectional hd 80, MQA, ragged S, S = 1, and the encoder
-   path's own float32 bidirectional shape, 8 x 1024, 16/16 heads of 80).
+   path's own float32 bidirectional shape, 8 x 1024, 16/16 heads of 80;
+   the float32 kernel also at every head dim it instantiates, 16 to 128,
+   hd 128 at train_moe's 4 x 2048 and with groups, ragged S and a window).
    The sort also at N equal to its default chunk, twice it and eight
    times it, G > 1. The
    probe also with one hot set at the Table I shape, from tied ages and
@@ -291,6 +293,7 @@ from __future__ import annotations
 
 import contextlib
 import collections
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -435,6 +438,27 @@ ATTN_CASES = [
      False, 40),
     ("hubert encoder float32 bidirectional hd 80", (8, 1024, 16, 16, 80),
      torch.float32, False, None),
+    # The float32 kernel's 16-lane layout (hd above 80) at train_moe's
+    # float32 gradient check's shape, then with groups, a ragged S and a
+    # window that cuts into blocks and tiles; and every other head dim the
+    # entry instantiates, hd 112 the one whose lanes read V one column at a
+    # time.
+    ("train_moe float32 4 x 2048, hd 128", (4, 2048, 16, 16, 128),
+     torch.float32, True, None),
+    ("float32 group 4, ragged S 1000, hd 128", (2, 1000, 16, 4, 128),
+     torch.float32, True, None),
+    ("float32 causal window 300, ragged S 1500, hd 128",
+     (1, 1500, 8, 2, 128), torch.float32, True, 300),
+    ("float32 ragged S 333, hd 112", (1, 333, 8, 2, 112), torch.float32,
+     True, None),
+    ("float32 causal window 70, hd 96", (1, 450, 4, 4, 96), torch.float32,
+     True, 70),
+    ("float32 ragged S 257, group 2, hd 48", (1, 257, 6, 3, 48),
+     torch.float32, True, None),
+    ("float32 bidirectional window 50, hd 32", (1, 300, 4, 2, 32),
+     torch.float32, False, 50),
+    ("float32 MQA ragged S 517, hd 16", (2, 517, 4, 1, 16), torch.float32,
+     True, None),
     ("f16 window 3", (1, 200, 4, 2, 128), torch.float16, True, 3),
 ]
 # Relative bound of the serve path's self-consistency (max |diff| over the
@@ -2570,9 +2594,31 @@ def attention_inputs(gen, dev, shape, dtype):
             for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
 
 
+def f32_attention_occupancy(hd: int) -> dict:
+    """B6's float32 kernel at head dim ``hd`` on this card, through the
+    built library's ``flash_attention_fwd_occupancy`` (it launches
+    nothing): the blocks an SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the block's
+    threads and shared bytes, the registers and local (spilled) bytes a
+    thread, and the warps an SM holds."""
+    keys = ("blocks_per_sm", "threads_per_block", "smem_bytes_per_block",
+            "registers_per_thread", "local_bytes_per_thread")
+    fn = ctypes.CDLL(str(_build.library_path("flash_attention"))) \
+        .flash_attention_fwd_occupancy
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * len(keys))()
+    err = fn(hd, out)
+    assert err == 0, f"flash_attention_fwd_occupancy({hd}): CUDA error {err}"
+    row = dict(zip(keys, out))
+    row["warps_per_sm"] = row["blocks_per_sm"] * row["threads_per_block"] // 32
+    return row
+
+
 def check_attention(dev, gen) -> dict:
     """B6 against its plain version on the card. float32 inputs (the
-    CUDA-core kernel): within the reference's rtol = atol = 3e-5. bf16 and
+    CUDA-core kernel): within the reference's rtol = atol = 3e-5. Views
+    whose rows do not start 16-byte aligned, bf16 and float32, are
+    copied for either kernel and give the same bits. bf16 and
     f16 inputs (the tensor-core kernel): it computes in float32 and rounds
     once, so its result must be bit-equal to its own float32 output on the
     same inputs (``out_dtype=torch.float32``) rounded once, and that
@@ -2614,14 +2660,16 @@ def check_attention(dev, gen) -> dict:
                                              .abs().max()))
         out[name] = row
         del q, k, v, got, want
-    # bf16 rows that do not start 16-byte aligned (views at a 2-byte
-    # offset) are copied for the tensor-core kernel: the same result.
-    q, k, v = attention_inputs(gen, dev, (2, 130, 8, 2, 64), torch.bfloat16)
-    views = [torch.cat([t[..., :1], t], dim=-1)[..., 1:] for t in (q, k, v)]
-    assert not any(fa_kernel._aligned(t) for t in views)
-    assert same_bits(fa_kernel.flash_attention_fwd(*views),
-                     fa_kernel.flash_attention_fwd(q, k, v)), \
-        "attention of misaligned views"
+    # Rows that do not start 16-byte aligned (views at a 2- or 4-byte
+    # offset) are copied for either kernel: the same result.
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = attention_inputs(gen, dev, (2, 130, 8, 2, 64), dtype)
+        views = [torch.cat([t[..., :1], t], dim=-1)[..., 1:]
+                 for t in (q, k, v)]
+        assert not any(fa_kernel._aligned(t) for t in views)
+        assert same_bits(fa_kernel.flash_attention_fwd(*views),
+                         fa_kernel.flash_attention_fwd(q, k, v)), \
+            f"attention of misaligned {dtype} views"
     torch.cuda.synchronize()
     return out
 
@@ -2629,8 +2677,9 @@ def check_attention(dev, gen) -> dict:
 def timings_attention(dev, gen) -> dict:
     """Phase 5, B6 at the serve path's prefill shape (first: the kernel
     line's row), at the encoder path's float32 shape (the CUDA-core
-    route) and at the train, train_moe and train_vlm paths' shapes: the
-    kernel, its plain version
+    route, hd 80) and at the train, train_moe and train_vlm paths'
+    shapes, train_moe's also in float32 (the CUDA-core route at hd 128,
+    as its float32 gradient check runs it): the kernel, its plain version
     and ``scaled_dot_product_attention`` on the same inputs (in its (B, H,
     S, hd) layout; no window argument, and each window here spans the
     whole sequence), beside the bound: the two products' FLOPs over the
@@ -2642,6 +2691,7 @@ def timings_attention(dev, gen) -> dict:
             (ENCODER_ATTN_SHAPE, torch.float32, False, None),
             (TRAIN_ATTN_SHAPE, torch.bfloat16, True, TRAIN_ATTN_WINDOW),
             (TRAIN_MOE_ATTN_SHAPE, torch.bfloat16, True, None),
+            (TRAIN_MOE_ATTN_SHAPE, torch.float32, True, None),
             (TRAIN_VLM_ATTN_SHAPE, torch.bfloat16, True, None)):
         B, S, H, KV, hd = shape
         assert window is None or window >= S
@@ -4682,6 +4732,12 @@ def run(dev) -> None:
             if ("registers" in line or "spill" in line
                     or "error" in line.lower()):
                 print(f"  ptxas[{name}]: {line.strip()}", flush=True)
+    # B6's float32 kernel: blocks an SM holds at each head dim
+    # (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with its threads,
+    # shared memory, registers and local bytes a thread.
+    say(phase="flash_attention_f32_occupancy", card=card(),
+        **{f"hd{hd}": f32_attention_occupancy(hd)
+           for hd in range(16, fa_kernel.MAX_HEAD_DIM + 1, 16)})
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs, mixed, routes = check_kernels(dev, gen)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the gather (B2), the scatter's ``add`` (B3), the DMA copy (B4), the
-cache probe (B5) and the set-parallel cache engine's calls at the main
-paths' shapes, as ``chip_smoke.py`` times them, for one version of the
-port, so that two versions can be compared on one card.
+cache probe (B5), the set-parallel cache engine's calls and flash
+attention (B6) at the main paths' shapes, as ``chip_smoke.py`` times them,
+for one version of the port, so that two versions can be compared on one
+card.
 
     python3 kernel_repeat.py [--src DIR]
 
@@ -10,14 +11,18 @@ port, so that two versions can be compared on one card.
 default this checkout's; another checkout's, e.g. an unpacked parent
 commit, to compare). The timings are ``chip_smoke.py``'s own
 (``timings_gather``, ``timings_scatter``, ``timings_bulk``,
-``timings_cache``, ``timings_engine``), run on that package: the
+``timings_cache``, ``timings_engine``, ``timings_attention``), run on
+that package: the
 wrapper's CUDA-event median, the device time and launches per call from
 ``torch.profiler`` and the kernel's own device time in that trace, the
 library call's, the plain version's, the bound. B3 and B5 are timed
 through their wrappers only (``full=False``), since their raw launches
 differ between versions; the engine through its entry points (the read
 trace, then the read/write trace under each write policy: device and host
-time, launches, host syncs, the kernels' own device time, the bound).
+time, launches, host syncs, the kernels' own device time, the bound);
+B6 at its six shapes, both routes (the tensor-core route at the serve,
+train, train_moe and train_vlm shapes, the float32 route at the
+encoder's and at train_moe's), beside ``scaled_dot_product_attention``.
 One process times one version: run it once per version, alternating
 versions (A, B, B, A) on one machine. Needs one CUDA device;
 builds that version's kernels first.
@@ -101,6 +106,8 @@ def main() -> int:
     rows["dma_copy"] = cs.timings_bulk(dev, dict(
         w=w, kv=kv, layer_kv=layer_kv,
         offset=cs.KV_LAYER * layer_kv.numel()))
+    del w, kv, layer_kv
+    rows["flash_attention"] = cs.timings_attention(dev, gen)
     for kernel, shapes in rows.items():
         for shape, row in shapes.items():
             print(json.dumps(dict(package=os.path.dirname(

@@ -65,26 +65,50 @@
 // are later work.
 //
 // flash_fwd_kernel (float32 inputs): the CUDA cores, since TF32 would
-// round q and k to 10 bits, far beyond the reference's 3e-5. One block of
-// 256 threads per (batch * head, 64 query rows). Each K/V tile is staged
-// in shared memory as float32; thread (ty, tx) of a 16 x 16 layout holds
-// the scores of query rows 4ty..4ty+3 against keys tx, tx+16, tx+32,
-// tx+48, and the output of those rows at columns tx + 16 * jd, in
-// registers. Products are float32 FMAs.
+// round q and k to 10 bits, far beyond the reference's 3e-5. Float32 FMAs
+// bound it: at the encoder path's shape (8 x 1024 tokens, 16/16 heads of
+// 80, bidirectional) the two products are 42.95 GFLOP, 0.641 ms at 67
+// TFLOP/s, against 0.050 ms for its 167.8 MB of q, k, v and o at 3.35
+// TB/s. So the design keeps the FMA pipes fed and shared memory off their
+// way:
+// - The head dim is a template parameter: every loop unrolls, and no lane
+//   holds a column past hd.
+// - A block of 256 threads takes 256 query rows of one (batch, head) up to
+//   hd 80, 128 above (F32Block). Lane tx of a row group holds the scores
+//   of its 8 rows against keys tx, tx + L, ... of each 64-key tile (L = 8
+//   lanes a group up to hd 80, 16 above) and their output columns, in
+//   registers: each K and V value read from shared memory feeds 8 FMAs,
+//   each q value 8 or 4, each p value hd / L.
+// - Q is loaded once, and the K and V tiles go through rings of two, all by
+//   16-byte cp.async copies (rows past S zero-filled): tile t + 1 loads
+//   while tile t computes, one block barrier per tile. The wrapper copies
+//   a view whose rows do not start 16-byte aligned first.
+// - Q, the rings and P fill 231,424 bytes at hd 80 and at hd 128: one
+//   block of 8 warps an SM, with up to 255 registers a thread and no
+//   spill. (Blocks of 16 warps cap a thread at 128 registers; with 8 rows
+//   a thread they spilled and ran slower on the H100.)
+// - P goes through shared memory to the lanes that hold the same rows, all
+//   in one warp, so only __syncwarp orders it. A warp's row groups read
+//   rows 8 apart, which share banks: Q's 16-byte chunks and P's keys are
+//   swizzled by the row group.
+// - Scores are scaled by hd^-0.5 * log2(e), so each exponential is one
+//   exp2f; the mask value stays the finite kNeg. Each lane keeps its own
+//   part of a row's running sum (the running max is the row's, so the
+//   correction factors agree), and the L parts are summed once at the end.
+// - A warp skips the products of a tile in which none of its rows has a
+//   live key (causal and window), and masks element by element only where
+//   a tile reaches past S, the diagonal or the window's edge for one of its
+//   rows. The heaviest causal blocks (last query rows) run first.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <float.h>
 
-constexpr int kTile = 64;         // query rows and keys per tile
-constexpr int kThreads = 256;     // 16 x 16 threads
-constexpr int kMaxHd = 128;
-constexpr int kMaxSlices = kMaxHd / 16;   // output columns per thread
-constexpr int kLdp = kTile + 4;           // row pitch of the probabilities
+constexpr int kTile = 64;         // keys per tile of the float32 kernel
 constexpr float kNeg = -0.7f * FLT_MAX;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -92,8 +116,6 @@ __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);     // round to nearest even, as torch's cast
@@ -111,187 +133,6 @@ struct Strides {
   long long b, s, h;   // elements; the head_dim axis has stride 1
 };
 
-// Shared memory: q and k tiles at a pitch of hd + 4 floats (16-byte rows
-// for float4 reads; a quarter-warp's 8 rows land on distinct banks), the v
-// tile at hd, the probabilities at kLdp.
-static inline size_t smem_bytes(int hd) {
-  return sizeof(float) *
-         (2 * kTile * (hd + 4) + kTile * hd + kTile * kLdp);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int group, int hd, int causal, int window, float scale,
-                 Strides qs, Strides ks, Strides vs) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ld = hd + 4;
-  float* q_s = smem;
-  float* k_s = q_s + kTile * ld;
-  float* v_s = k_s + kTile * ld;
-  float* p_s = v_s + kTile * hd;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H, kvh = h / group;
-  // Heaviest causal tiles (last query rows) first.
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int nd = hd / 16;
-
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
-
-  for (int e = tid; e < kTile * hd; e += kThreads) {
-    const int r = e / hd, d = e - r * hd, i = q0 + r;
-    q_s[r * ld + d] = i < S ? to_f32(qb[i * qs.s + d]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][kMaxSlices];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jd = 0; jd < kMaxSlices; ++jd) acc[i][jd] = 0.f;
-  }
-
-  // Live keys of this query tile: [k_first, k_last].
-  int k_last = S - 1;
-  if (causal) k_last = min(k_last, q0 + kTile - 1);
-  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
-
-  for (int t = k_first / kTile; t <= k_last / kTile; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();   // the last tile's readers are done; q_s is loaded
-    for (int e = tid; e < kTile * hd; e += kThreads) {
-      const int r = e / hd, d = e - r * hd, j = k0 + r;
-      k_s[r * ld + d] = j < S ? to_f32(kb[j * ks.s + d]) : 0.f;
-      v_s[r * hd + d] = j < S ? to_f32(vb[j * vs.s + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
-    for (int d = 0; d < hd; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&q_s[(4 * ty + i) * ld + d]);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        kv[c] = *reinterpret_cast<const float4*>(&k_s[(tx + 16 * c) * ld + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[i][c] = fmaf(qv[i].x, kv[c].x, s[i][c]);
-          s[i][c] = fmaf(qv[i].y, kv[c].y, s[i][c]);
-          s[i][c] = fmaf(qv[i].z, kv[c].z, s[i][c]);
-          s[i][c] = fmaf(qv[i].w, kv[c].w, s[i][c]);
-        }
-    }
-
-    // Mask, online softmax. The 16 threads of a row group are lanes of one
-    // warp that differ only in tx, so xor shuffles over 1..8 reduce a row.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + 4 * ty + i;
-      float tmax = kNeg;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = k0 + tx + 16 * c;
-        const bool live = j < S && (!causal || j <= qi) &&
-                          (window <= 0 || j > qi - window);
-        s[i][c] = live ? s[i][c] * scale : kNeg;
-        tmax = fmaxf(tmax, s[i][c]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_new = fmaxf(m[i], tmax);
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[i][c] - m_new);
-        p_s[(4 * ty + i) * kLdp + tx + 16 * c] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l[i] = l[i] * corr + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int jd = 0; jd < kMaxSlices; ++jd) acc[i][jd] *= corr;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < kTile; c += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&p_s[(4 * ty + i) * kLdp + c]);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float* vrow = &v_s[(c + cc) * hd + tx];
-#pragma unroll
-        for (int jd = 0; jd < kMaxSlices; ++jd) {
-          if (jd < nd) {
-            const float vv = vrow[16 * jd];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              acc[i][jd] = fmaf(lane(pv[i], cc), vv, acc[i][jd]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
-    if (qi >= S) continue;
-    const float den = fmaxf(l[i], 1e-37f);
-    T* orow = o + ((static_cast<long long>(b) * S + qi) * H + h) * hd;
-#pragma unroll
-    for (int jd = 0; jd < kMaxSlices; ++jd)
-      if (jd < nd) orow[tx + 16 * jd] = from_f32<T>(acc[i][jd] / den);
-  }
-}
-
-template <typename T>
-static int launch(const void* q, const void* k, const void* v, void* o,
-                  int B, int S, int H, int KV, int hd, int causal, int window,
-                  float scale, Strides qs, Strides ks, Strides vs,
-                  cudaStream_t stream) {
-  const size_t bytes = smem_bytes(hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(B) * H, (S + kTile - 1) / kTile);
-  flash_fwd_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, H / KV, hd, causal,
-      window, scale, qs, ks, vs);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// Tensor-core kernel (bf16, f16)
-// ---------------------------------------------------------------------------
-
-constexpr int kTcTile = 64;       // query rows of a block, keys of a tile
-constexpr int kTcThreads = 128;   // one warpgroup
-constexpr int kPTerms = 3;        // P = P_hi + P_mid + P_lo in the input type
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -302,6 +143,316 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(ok ? 16 : 0));
 }
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The float32 kernel's block for head dim HD, 256 threads, one block (8
+// warps) an SM. Up to kF32SmallHd: 256 query rows in row groups of 8
+// lanes (8 keys of each tile a lane); above it, 128 rows in row groups of
+// 16 lanes (4 keys a lane). A lane reads V two columns at a time where its
+// columns pair up. Shared memory in floats: Q (rows x HD), a ring of two K
+// tiles at a pitch of HD + 4 (a quarter-warp's 8 rows land on distinct
+// banks), a ring of two V tiles and P (rows x 64): 231,424 bytes at hd 80
+// and at hd 128.
+constexpr int kF32SmallHd = 80;
+template <int HD>
+struct F32Block {
+  static constexpr bool small = HD <= kF32SmallHd;
+  static constexpr int rows = small ? 256 : 128;   // query rows a block
+  static constexpr int lanes = small ? 8 : 16;     // lanes a row group
+  static constexpr int threads = rows / 8 * lanes;
+  static constexpr int kpl = kTile / lanes;        // keys a lane, each tile
+  // Keys a pass of Q K^T: at 8 lanes two passes, or the 255 registers of
+  // a thread spill.
+  static constexpr int kpass = small ? kpl / 2 : kpl;
+  static constexpr int groups = 32 / lanes;        // row groups a warp
+  static constexpr int vec = HD % (2 * lanes) == 0 ? 2 : 1;  // V a load
+  static constexpr int cols = HD / lanes;          // output columns a lane
+  static constexpr int ldk = HD + 4;
+  static constexpr int k_off = rows * HD;
+  static constexpr int v_off = k_off + 2 * kTile * ldk;
+  static constexpr int p_off = v_off + 2 * kTile * HD;
+  static constexpr size_t smem = sizeof(float) * (p_off + rows * kTile);
+  static_assert(smem <= 232448, "more than one block's shared memory");
+  static_assert(threads == 256, "one block of 8 warps an SM");
+};
+
+// Rows r0 .. r0 + N - 1 of a (S, HD) float32 operand into shared memory at
+// a pitch of LD floats, by 16-byte cp.async copies of THREADS threads;
+// rows past S are zeros. Row r's 16-byte chunk c lands at chunk c ^ ((r /
+// 8) % SW) (SW = 1: in order).
+template <int HD, int N, int LD, int THREADS, int SW = 1>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long row_stride, int r0,
+                                          int S) {
+  constexpr int ch = HD / 4, n = N * ch;
+#pragma unroll
+  for (int it = 0; it < (n + THREADS - 1) / THREADS; ++it) {
+    const int e = threadIdx.x + it * THREADS;
+    if (n % THREADS == 0 || e < n) {
+      const int r = e / ch, c = e - r * ch, row = r0 + r;
+      const bool ok = row < S;
+      cp_async16(smem_u32(dst + r * LD + 4 * (c ^ ((r >> 3) % SW))),
+                 src + (ok ? row : 0) * row_stride + 4 * c, ok);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(F32Block<HD>::threads, 1)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 int H, int group, int causal, int window, float scale,
+                 Strides qs, Strides ks, Strides vs) {
+  using F = F32Block<HD>;
+  constexpr int L = F::lanes, KPL = F::kpl, VEC = F::vec;
+  constexpr int wrows = 8 * F::groups;     // query rows a warp
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* q_s = smem;
+  float* p_s = smem + F::p_off;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kvh = h / group;
+  // Heaviest causal blocks (last query rows) first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * F::rows;
+  const int tid = threadIdx.x, ty = tid / L, tx = tid % L;
+  const int g = ty % F::groups;            // row group within the warp
+  const int r0 = 8 * ty;                   // this thread's first row
+  const int w0 = q0 + wrows * (tid / 32);  // this warp's first query row
+  // The warp's row groups read rows 8 apart, which share banks: Q's
+  // chunks and P's keys are swizzled by the row group.
+  const int qsw = g, psw = g * L;
+  const float scale_log2 = scale * kLog2e;
+
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
+
+  // Live keys of this block: [k_first, k_last].
+  int k_last = S - 1;
+  if (causal) k_last = min(k_last, q0 + F::rows - 1);
+  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_first = k_first / kTile, t_last = k_last / kTile;
+  auto k_at = [&](int t) {
+    return smem + F::k_off + ((t - t_first) & 1) * kTile * F::ldk;
+  };
+  auto v_at = [&](int t) {
+    return smem + F::v_off + ((t - t_first) & 1) * kTile * HD;
+  };
+
+  load_rows<HD, F::rows, HD, F::threads, F::groups>(q_s, qb, qs.s, q0, S);
+  load_rows<HD, kTile, F::ldk, F::threads>(k_at(t_first), kb, ks.s,
+                                           t_first * kTile, S);
+  load_rows<HD, kTile, HD, F::threads>(v_at(t_first), vb, vs.s,
+                                       t_first * kTile, S);
+  cp_async_commit();
+
+  float m[8], l[8], acc[8][F::cols];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.f;
+#pragma unroll
+    for (int jd = 0; jd < F::cols; ++jd) acc[i][jd] = 0.f;
+  }
+
+  for (int t = t_first; t <= t_last; ++t) {
+    // Tile t has landed for every thread, and every warp is done with
+    // tile t - 1, whose ring slots tile t + 1 now takes.
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if (t < t_last) {
+      load_rows<HD, kTile, F::ldk, F::threads>(k_at(t + 1), kb, ks.s,
+                                               (t + 1) * kTile, S);
+      load_rows<HD, kTile, HD, F::threads>(v_at(t + 1), vb, vs.s,
+                                           (t + 1) * kTile, S);
+      cp_async_commit();
+    }
+    const int k0 = t * kTile;
+    // No row of this warp has a live key in the tile: its products would
+    // add exact zeros (or be zeroed by the next correction factor).
+    if (w0 >= S || (causal && k0 > w0 + wrows - 1) ||
+        (window > 0 && k0 + kTile - 1 <= w0 - window))
+      continue;
+    const bool edge = k0 + kTile > S || (causal && k0 + kTile - 1 > w0) ||
+                      (window > 0 && k0 <= w0 + wrows - 1 - window);
+    const float* k_s = k_at(t);
+    const float* v_s = v_at(t);
+
+    // S = Q K^T: rows r0 .. r0 + 7 against keys tx + L c.
+    float s[8][KPL];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < KPL; ++c) s[i][c] = 0.f;
+#pragma unroll
+    for (int c0 = 0; c0 < KPL; c0 += F::kpass) {
+#pragma unroll 4
+      for (int d = 0; d < HD; d += 4) {
+        float4 kv[F::kpass];
+#pragma unroll
+        for (int c = 0; c < F::kpass; ++c)
+          kv[c] = *reinterpret_cast<const float4*>(
+              &k_s[(tx + L * (c0 + c)) * F::ldk + d]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(
+              &q_s[(r0 + i) * HD + 4 * ((d / 4) ^ qsw)]);
+#pragma unroll
+          for (int c = 0; c < F::kpass; ++c) {
+            float& x = s[i][c0 + c];
+            x = fmaf(qv.x, kv[c].x, x);
+            x = fmaf(qv.y, kv[c].y, x);
+            x = fmaf(qv.z, kv[c].z, x);
+            x = fmaf(qv.w, kv[c].w, x);
+          }
+        }
+      }
+    }
+
+    // Mask, online softmax in log2 units. The L lanes of a row group
+    // differ only in tx, so xor shuffles over L / 2 .. 1 reduce a row.
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int qi = q0 + r0 + i;
+      float tmax = kNeg;
+#pragma unroll
+      for (int c = 0; c < KPL; ++c) {
+        float& x = s[i][c];
+        if (edge) {
+          const int j = k0 + tx + L * c;
+          const bool live = j < S && (!causal || j <= qi) &&
+                            (window <= 0 || j > qi - window);
+          x = live ? x * scale_log2 : kNeg;
+        } else {
+          x *= scale_log2;
+        }
+        tmax = fmaxf(tmax, x);
+      }
+#pragma unroll
+      for (int off = L / 2; off > 0; off >>= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      const float m_new = fmaxf(m[i], tmax);
+      const float corr = exp2f(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int c = 0; c < KPL; ++c) {
+        const float p = exp2f(s[i][c] - m_new);
+        p_s[(r0 + i) * kTile + ((tx + L * c) ^ psw)] = p;
+        psum += p;
+      }
+      l[i] = l[i] * corr + psum;
+      m[i] = m_new;
+#pragma unroll
+      for (int jd = 0; jd < F::cols; ++jd) acc[i][jd] *= corr;
+    }
+    __syncwarp();
+
+    // O += P V, keys in order; a lane's columns VEC tx + VEC L n + e.
+#pragma unroll 2
+    for (int c = 0; c < kTile; c += 4) {
+      float4 pv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(
+            &p_s[(r0 + i) * kTile + (c ^ psw)]);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float* vrow = &v_s[(c + cc) * HD + VEC * tx];
+#pragma unroll
+        for (int n = 0; n < F::cols / VEC; ++n) {
+          float vv[VEC];
+          if constexpr (VEC == 2) {
+            const float2 v2 =
+                *reinterpret_cast<const float2*>(&vrow[VEC * L * n]);
+            vv[0] = v2.x;
+            vv[1] = v2.y;
+          } else {
+            vv[0] = vrow[L * n];
+          }
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              acc[i][VEC * n + e] =
+                  fmaf(lane(pv[i], cc), vv[e], acc[i][VEC * n + e]);
+        }
+      }
+    }
+    __syncwarp();   // P is read before the next tile writes it
+  }
+
+  // A row's sum: its L lanes' parts.
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int off = L / 2; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int qi = q0 + r0 + i;
+    if (qi >= S) continue;
+    const float den = fmaxf(l[i], 1e-37f);
+    float* orow = o + ((static_cast<long long>(b) * S + qi) * H + h) * HD +
+                  VEC * tx;
+#pragma unroll
+    for (int n = 0; n < F::cols / VEC; ++n)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        orow[VEC * L * n + e] = acc[i][VEC * n + e] / den;
+  }
+}
+
+template <int HD>
+static int launch_f32_hd(const void* q, const void* k, const void* v,
+                         void* o, int B, int S, int H, int KV, int causal,
+                         int window, float scale, Strides qs, Strides ks,
+                         Strides vs, cudaStream_t stream) {
+  using F = F32Block<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(F::smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(B) * H, (S + F::rows - 1) / F::rows);
+  flash_fwd_kernel<HD><<<grid, F::threads, F::smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, H / KV,
+      causal, window, scale, qs, ks, vs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the float32 kernel one SM holds at head dim HD, with what
+// decides it: out[0] blocks, [1] threads a block, [2] shared memory bytes
+// a block, [3] registers a thread, [4] local (spilled) bytes a thread.
+template <int HD>
+static int occupancy_f32_hd(int* out) {
+  using F = F32Block<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(F::smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, flash_fwd_kernel<HD>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], flash_fwd_kernel<HD>, F::threads, F::smem);
+  out[1] = F::threads;
+  out[2] = static_cast<int>(F::smem);
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core kernel (bf16, f16)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcTile = 64;       // query rows of a block, keys of a tile
+constexpr int kTcThreads = 128;   // one warpgroup
+constexpr int kPTerms = 3;        // P = P_hi + P_mid + P_lo in the input type
 
 // wgmma shared-memory matrix descriptor, no swizzle: start address, the
 // leading-dimension byte offset (between core matrices along K) and the
@@ -505,9 +656,6 @@ __device__ __forceinline__ void split_p(const float (&s)[32],
     }
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 // Every cp.async group but the last committed has landed, and is visible
 // to wgmma (which reads through the async proxy) in every thread.
 __device__ __forceinline__ void cp_async_wait_prior() {
@@ -692,16 +840,41 @@ static int launch_tc(const void* q, const void* k, const void* v, void* o,
 // multiple of 16 in [16, 128], window 0 (none) or >= 1, B * H < 2^31,
 // S <= 65535 * 64.
 //
-// float32 q, k, v and o: the CUDA-core kernel.
+// float32 q, k, v and o: the CUDA-core kernel. The caller also checks
+// that every row of q, k and v starts 16-byte aligned.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
     int KV, int hd, int causal, int window, float scale, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, void* stream) {
-  return launch<float>(q, k, v, o, B, S, H, KV, hd, causal, window, scale,
-                       Strides{qsb, qss, qsh}, Strides{ksb, kss, ksh},
-                       Strides{vsb, vss, vsh},
-                       static_cast<cudaStream_t>(stream));
+  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+#define FA_HD(HD)                                                            \
+    case HD:                                                                 \
+      return launch_f32_hd<HD>(q, k, v, o, B, S, H, KV, causal, window,      \
+                               scale, qs, ks, vs, s);
+    FA_HD(16) FA_HD(32) FA_HD(48) FA_HD(64) FA_HD(80) FA_HD(96) FA_HD(112)
+    FA_HD(128)
+#undef FA_HD
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The float32 kernel's residency at head dim hd (occupancy_f32_hd's five
+// numbers into out).
+extern "C" int flash_attention_fwd_occupancy(int hd, int* out) {
+  switch (hd) {
+#define FA_HD(HD)                                                            \
+    case HD:                                                                 \
+      return occupancy_f32_hd<HD>(out);
+    FA_HD(16) FA_HD(32) FA_HD(48) FA_HD(64) FA_HD(80) FA_HD(96) FA_HD(112)
+    FA_HD(128)
+#undef FA_HD
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // bf16 (dtype 1) or f16 (dtype 2) q, k, v: the tensor-core kernel; o in

@@ -8,8 +8,10 @@ with ``out_dtype=torch.float32``). On a CUDA tensor it launches a kernel of
 ``csrc/flash_attention.cu``, chosen by dtype: bf16 and f16 go to the
 tensor-core kernel (wgmma, P split into ``kPTerms`` terms of the input
 type; entry ``flash_attention_fwd_tc``), float32 to the
-CUDA-core kernel (entry ``flash_attention_fwd``); ``LIB.entry_launches``
-counts each route. On a CPU tensor it runs ``flash_attention_plain``, the
+CUDA-core kernel (float32 FMAs on tiles staged by cp.async, one
+instantiation per head dim; entry ``flash_attention_fwd``);
+``LIB.entry_launches`` counts each route. On a CPU tensor it runs
+``flash_attention_plain``, the
 blocked online-softmax loop of the reference's XLA path
 (``repro.models.layers.flash_attention``), whose result does not depend on
 its block sizes beyond float32 summation order. The backward, on every
@@ -115,6 +117,15 @@ def _aligned(t: torch.Tensor) -> bool:
         (st * size) % 16 == 0 for st in t.stride()[:3])
 
 
+def _staged(*ts: torch.Tensor) -> tuple:
+    """Each tensor as the kernels take it: itself where every row starts
+    16-byte aligned, else a contiguous copy. Both kernels stage rows by
+    16-byte cp.async copies; a fresh tensor is aligned, a view at an odd
+    offset or with an odd row pitch is not."""
+    return tuple(t if _aligned(t) else t.clone(
+        memory_format=torch.contiguous_format) for t in ts)
+
+
 def _check(q, k, v, window) -> None:
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
@@ -148,9 +159,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The three share one float dtype (float32, bf16 or f16) and one device;
     H is a multiple of KV; hd a multiple of 16 up to 128; ``window`` None
-    or >= 1. Any layout whose head_dim axis has stride 1 runs without a
-    copy (for bf16 and f16, one whose rows also start 16-byte aligned; any
-    other is copied first). ``q_block`` and
+    or >= 1. Any layout whose head_dim axis has stride 1 and whose rows
+    start 16-byte aligned runs without a copy; any other is copied
+    first. ``q_block`` and
     ``kv_block`` are the plain version's tiles (CPU tensors, and the
     backward on any device); the kernels' are fixed. Anything else raises
     ``ValueError``. Differentiable through ``FlashAttention``.
@@ -205,12 +216,9 @@ def _forward(q, k, v, *, causal, window, q_block, kv_block,
     if out.numel() == 0:
         return out
     entry = ROUTES[q.dtype]
+    q, k, v = _staged(q, k, v)
     route_args = ()
     if entry == "flash_attention_fwd_tc":
-        # 16-byte cp.async copies: every row must start 16-byte aligned (a
-        # fresh copy does; a contiguous view at an odd offset does not).
-        q, k, v = (t if _aligned(t) else t.clone(
-            memory_format=torch.contiguous_format) for t in (q, k, v))
         route_args = (DTYPES[q.dtype], int(out_dtype == torch.float32))
     LIB.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                out.data_ptr(), B, S, H, k.shape[2], hd, int(causal),

@@ -135,7 +135,7 @@ def test_ref_oracle_is_a_stable_sort(rng):
         assert torch.equal(t, r)
 
 
-@settings(max_examples=30, deadline=None)
+@settings(max_examples=30, deadline=None, derandomize=True)
 @given(st.lists(st.integers(0, 7), min_size=1, max_size=200))
 def test_property_duplicate_heavy_keys_match_argsort(xs):
     keys = np.asarray(xs, np.int32)

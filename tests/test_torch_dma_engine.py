@@ -50,7 +50,7 @@ PATHS = [(True, True, True), (True, False, False), (False, True, True),
 """(DMA engine, use_pallas, use_kernels)."""
 
 
-@settings(max_examples=30, deadline=None)
+@settings(max_examples=30, deadline=None, derandomize=True)
 @given(st.integers(1, 10_000_000), st.integers(1, 8),
        st.sampled_from([256, 4096, 16384, 65536, 262144]))
 def test_plan_and_modeled_cycles_match_reference(total, channels, txn):

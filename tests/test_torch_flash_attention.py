@@ -158,9 +158,14 @@ SPLIT_CASES = {
 }
 
 
-# The tensor-core kernel's term count, stated once, in its source.
-P_TERMS = int(re.search(r"constexpr int kPTerms = (\d+);",
-                        (CSRC / "flash_attention.cu").read_text()).group(1))
+def cu_constant(name: str) -> int:
+    """A ``constexpr int`` of the kernels' source, stated once there."""
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         (CSRC / "flash_attention.cu").read_text()).group(1))
+
+
+# The tensor-core kernel's term count.
+P_TERMS = cu_constant("kPTerms")
 
 
 def split_p(p, dtype, terms):
@@ -278,3 +283,149 @@ def test_alignment_check_of_the_tensor_core_route():
     assert not tkernel._aligned(wide[..., :64])      # 130-byte rows
     assert tkernel._aligned(torch.zeros((1, 8, 4, 72),
                                         dtype=torch.bfloat16)[..., 8:])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_misaligned_views_are_copied_before_launch(dtype):
+    """Both kernels stage 16-byte pieces of each row by cp.async (the
+    float32 route too, since its redesign): the wrapper hands them a
+    contiguous copy of a view whose rows do not start 16-byte aligned,
+    and an aligned tensor as it is."""
+    per16 = 16 // torch.empty((), dtype=dtype).element_size()
+    wide = torch.randn((1, 8, 4, 65)).to(dtype)
+    for view in (wide[..., 1:], wide[..., :64]):   # offset; row pitch
+        assert not tkernel._aligned(view)
+        (staged,) = tkernel._staged(view)
+        assert tkernel._aligned(staged) and staged.is_contiguous()
+        assert staged.data_ptr() != view.data_ptr()
+        assert torch.equal(staged, view)
+    padded = torch.randn((1, 8, 4, 64 + per16)).to(dtype)[..., per16:]
+    fresh = torch.zeros((1, 8, 4, 64), dtype=dtype)
+    for t in (padded, fresh):
+        assert tkernel._aligned(t)
+        assert tkernel._staged(t)[0] is t
+
+
+# --- The float32 kernel's walk and arithmetic (flash_fwd_kernel), in numpy
+# float32. Its layout: up to hd kF32SmallHd, blocks of 256 query rows and
+# row groups of 8 lanes; above, 128 rows and 16 lanes; 8 rows a row group,
+# 32 lanes a warp. A block walks the kTile-key tiles from its first live
+# key's to its last's; a warp skips a tile in which none of its rows has a
+# live key and masks element by element only where the tile reaches past
+# S, the diagonal or the window's edge for one of its rows, else takes
+# every score. Scores are scaled by hd^-0.5 * log2(e) (every exponential
+# an exp2), each row keeps its running max, and each of its lanes its own
+# part of the running sum (keys tx, tx + lanes, ... of each tile), the
+# parts summed by xor shuffles at the end. Small versions of
+# chip_smoke.py's float32 ATTN_CASES: (B, S, H, KV, hd, causal, window).
+F32_TILE = cu_constant("kTile")
+F32_SMALL_HD = cu_constant("kF32SmallHd")
+
+
+def f32_layout(hd: int) -> tuple:
+    """(query rows a block, lanes a row group, query rows a warp)."""
+    small = hd <= F32_SMALL_HD
+    lanes = 8 if small else 16
+    return (256 if small else 128), lanes, 8 * 32 // lanes
+
+
+F32_CASES = {
+    "ragged_group7": (1, 200, 7, 1, 80, True, None),
+    "single_token": (2, 1, 16, 2, 128, True, None),
+    "bidir_window40": (1, 150, 4, 2, 64, False, 40),
+    "encoder_hd80": (1, 256, 2, 2, 80, False, None),
+    "causal_window66_hd128": (1, 300, 4, 2, 128, True, 66),
+    "ragged_hd112": (1, 170, 4, 2, 112, True, None),
+    "causal_window34_hd16": (1, 290, 2, 1, 16, True, 34),
+}
+
+
+def f32_kernel_model(q, k, v, causal, window):
+    """The float32 kernel's walk, its warps' skip and edge predicates and
+    its per-tile order on numpy float32 ``(B, S, H, hd)`` q and ``(B, S,
+    KV, hd)`` k, v (rows past S zero, as the kernel's copies fill them)."""
+    f32 = np.float32
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    rows, lanes, wrows = f32_layout(hd)
+    w = window or 0
+    scale_log2 = f32(hd ** -0.5) * f32(1.4426950408889634)
+    neg = f32(-0.7) * np.finfo(f32).max
+    n_tiles = -(-S // F32_TILE)
+    pad_to = max(n_tiles * F32_TILE, -(-S // rows) * rows)
+    qp, kp, vp = (np.pad(t, ((0, 0), (0, pad_to - S), (0, 0), (0, 0)))
+                  for t in (q, k, v))
+    out = np.full_like(q, np.nan)
+    for b in range(B):
+        for h in range(H):
+            kh, vh = kp[b, :, h // G], vp[b, :, h // G]
+            for q0 in range(0, S, rows):
+                k_last = min(S - 1, q0 + rows - 1) if causal else S - 1
+                k_first = max(0, q0 - w + 1) if w else 0
+                for w0 in range(q0, min(q0 + rows, S), wrows):
+                    qi = np.arange(w0, w0 + wrows)[:, None]
+                    m = np.full(wrows, neg, f32)
+                    l = np.zeros((wrows, lanes), f32)
+                    acc = np.zeros((wrows, hd), f32)
+                    for t in range(k_first // F32_TILE,
+                                   k_last // F32_TILE + 1):
+                        k0 = t * F32_TILE
+                        if ((causal and k0 > w0 + wrows - 1) or
+                                (w and k0 + F32_TILE - 1 <= w0 - w)):
+                            continue
+                        edge = (k0 + F32_TILE > S or
+                                (causal and k0 + F32_TILE - 1 > w0) or
+                                (w and k0 <= w0 + wrows - 1 - w))
+                        keys = slice(k0, k0 + F32_TILE)
+                        x = (qp[b, w0:w0 + wrows, h] @ kh[keys].T) \
+                            * scale_log2
+                        if edge:
+                            j = k0 + np.arange(F32_TILE)[None, :]
+                            live = j < S
+                            if causal:
+                                live = live & (j <= qi)
+                            if w:
+                                live = live & (j > qi - w)
+                            x = np.where(live, x, neg)
+                        m_new = np.maximum(m, x.max(1))
+                        corr = np.exp2(m - m_new)
+                        p = np.exp2(x - m_new[:, None]).astype(f32)
+                        parts = p.reshape(wrows, -1, lanes)
+                        psum = parts[:, 0]
+                        for c in range(1, parts.shape[1]):
+                            psum = psum + parts[:, c]
+                        l = l * corr[:, None] + psum
+                        acc = acc * corr[:, None] + p @ vh[keys]
+                        m = m_new
+                    off = lanes // 2
+                    while off:
+                        l = l + l[:, np.arange(lanes) ^ off]
+                        off //= 2
+                    n = min(wrows, S - w0)
+                    out[b, w0:w0 + n, h] = (
+                        acc / np.maximum(l[:, :1], f32(1e-37)))[:n]
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", sorted(F32_CASES))
+def test_float32_kernel_order_stays_within_3e5_of_the_plain_version(
+        case, seed):
+    """The float32 kernel's walk, predicates and summation order (its
+    numpy model) against
+    ``flash_attention_plain`` and the JAX package's oracle on the same
+    inputs, within the reference's float32 3e-5."""
+    B, S, H, KV, hd, causal, window = F32_CASES[case]
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    got = f32_kernel_model(q, k, v, causal, window)
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    plain = tkernel.flash_attention_plain(
+        *(torch.from_numpy(t) for t in (q, k, v)), causal=causal,
+        window=window)
+    np.testing.assert_allclose(got, plain.numpy(), rtol=3e-5, atol=3e-5)
+    want = jref(*(jnp.asarray(t) for t in (q, k, v)), causal=causal,
+                window=window)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=3e-5, atol=3e-5)

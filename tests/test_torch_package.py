@@ -101,6 +101,35 @@ def test_no_source_names_jax_or_the_reference_package():
                 assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
+def _decorator_name(node) -> str:
+    """``given`` for ``@given(...)``, ``@hypothesis.given`` and the like."""
+    if isinstance(node, ast.Call):
+        node = node.func
+    return node.attr if isinstance(node, ast.Attribute) else getattr(
+        node, "id", "")
+
+
+def test_port_property_tests_draw_fixed_examples():
+    """Every Hypothesis test of the port's test files (``@given``) has a
+    ``@settings(..., derandomize=True)``: the same examples on every run,
+    so that a pass on one tree is a pass on the next."""
+    found = 0
+    for path in sorted((ROOT / "tests").glob("test_torch_*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            decos = {_decorator_name(d): d for d in node.decorator_list}
+            if "given" not in decos:
+                continue
+            found += 1
+            settings = decos.get("settings")
+            fixed = isinstance(settings, ast.Call) and any(
+                kw.arg == "derandomize" and isinstance(kw.value, ast.Constant)
+                and kw.value.value is True for kw in settings.keywords)
+            assert fixed, f"{path.name}::{node.name}: no derandomize=True"
+    assert found >= 8
+
+
 @pytest.mark.parametrize("call", ["simulate", "simulate_open_loop",
                                   "sched_fast", "arrivals_fast",
                                   "faults_fast"])

@@ -30,7 +30,7 @@ def _batches(former, sched, addrs, rw, arrival):
             for b in former(addrs, rw, arrival, config=sched)]
 
 
-@settings(max_examples=60, deadline=None)
+@settings(max_examples=60, deadline=None, derandomize=True)
 @given(n=st.integers(0, 80),
        batch_pow=st.integers(2, 6),
        timeout=st.integers(4, 40),
